@@ -1,0 +1,522 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (progen_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py [--details PATH]
+
+Phases, one line each:
+  1. build the CUDA kernels from progen_tpu_torch/csrc (one nvcc per
+     source, all at once);
+  2. at the base model's shapes (configs/model/base.toml, batch 8), hold
+     each kernel against its plain PyTorch version on the card, and time
+     the kernel, the plain version and, where one exists, a single
+     PyTorch call computing the same function;
+  3. the main path, driven once with the launch counts set to 0 just
+     before and read just after: the base model (dim 1024, depth 24,
+     heads 16, dim_head 64, window 512, seq_len 1024, ~401M parameters,
+     random weights from a seed) scores 8 protein strings through
+     score_step, one forward that must launch 24 (attention), 48 (norm +
+     shift) and 2 (SGU tail) kernels; then sample_fast_batched answers 4
+     generation requests (top_k 25, BOS, length 256) with the KV-cache
+     decoder, which launches none;
+  4. the checks: scores of the expected shape, finite, over the expected
+     tokens, with logits that agree with the same model on the plain
+     path (each kernel's plain version swapped in by this script); the
+     generated sequences well formed, and the decoder's logits in
+     agreement with the full forward over their 256 positions.
+
+Plain-path comparisons run with TF32 off for matrix products and
+convolutions (torch.backends.cuda.matmul.allow_tf32 and
+torch.backends.cudnn.allow_tf32 are set False). Any failure exits
+non-zero. The line before the last holds the card's name and power limit,
+the one before it the kernel table as JSON; the last line is the result.
+The full results (every kernel row, the main path's checks, a profile of
+one forward by kernel group, the nvcc logs) go to ``--details`` as JSON,
+by default build/chip_smoke.json.
+"""
+
+import argparse
+import contextlib
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+from unittest import mock
+
+import numpy as np
+import torch
+
+REPO = Path(__file__).resolve().parent
+BATCH = 8
+GEN_LENGTH = 256
+# largest logit gap allowed between the kernel and plain bfloat16 paths of
+# the base model (measured 0.136 on an H100: the two round differently)
+LOGIT_ATOL = 0.3
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
+            torch.float32: 67e12}  # dense tensor-core / float32 FMA rates
+
+PROTEINS = [
+    "MQIFVKTLTGKTITLEVEPSDTIENVKAKIQDKEGIPPDQQRLIFAGKQLEDGRTLSDYNIQKESTLHLVLRLRGG",
+    "MSKGEELFTGVVPILVELDGDVNGHKFSVSGEGEGDATYGKLTLKFICTTGKLPVPWPTLVTTFSYGVQCFSRYPDHMKQHDFFKSAMPEGYVQERTIFFKDDGNYKTRAEVKFEGDTLVNRIELKGIDFKEDGNILGHKLEYNYNSHNVYIMADKQKNGIKVNFKIRHNIEDGSVQLADHYQQNTPIGDGPVLLPDNHYLSTQSALSKDPNEKRDHMVLLEFVTAAGITHGMDELYK",
+    "MALWMRLLPLLALLALWGPDPAAAFVNQHLCGSHLVEALYLVCGERGFFYTPKTRREAEDLQVGQVELGGGPGAGSLQPLALEGSLQKRGIVEQCCTSICSLYQLENYCN",
+    "MVLSPADKTNVKAAWGKVGAHAGEYGAEALERMFLSFPTTKTYFPHFDLSHGSAQVKGHGKKVADALTNAVAHVDDMPNALSALSDLHAHKLRVDPVNFKLLSHCLLVTLAAHLPAEFTPAVHASLDKFLASVSTVLTSKYR",
+    "KVFGRCELAAAMKRHGLDNYRGYSLGNWVCAAKFESNFNTQATNRNTDGSTDYGILQINSRWWCNDGRTPGSRNLCNIPCSALLSSDITASVNCAKKIVSDGNGMNAWVAWRNRCKGTDVQAWIRGCRL",
+    "MKTAYIAKQRQISFVKSHFSRQLEERLGLIEVQAPILSRVGDGTQDNLSGAEKAVQVKVKALPDAQFEVVHSLAKWKRQTLGQHDFSAGEGLYTHMKALRPDEDRLSPLHSVYVDQWDWERVMGDGERQFSTLKSTVEAIWAGIKATEAAVSEEFGLAPFLPDQIHFVHSQELLSRYPDLDAKGRERAIAKDLGAVFLVGIGGKLSDGHRHDVRAPDYDDW",
+    "MDSKGSSQKGSRLLLLLVVSNLLLCQGVVSTPVCPNGPGNCQVSLRDLFDRAVMVSHYIHDLSSEMFNEFDKRYAQGKGFITMALNSCHTSSLPTPEDKEQAQQTHHEVLMSLILGLLRSWNDPLYHLVTEVRGMKGAPDAILSRAIEIEEENKRLLEGMEMIFGQVIPGAKETEPYPVWSGLPSLQTKDEDARYSAFYNLLHCLRRDSSKIDTYLKLLNCRIIYNNNC",
+    "GIVEQCCTSICSLYQLENYCN",
+]
+PRIMES = ["MKTA", "MSKG", "MALW", "MVLS"]  # one length: one batch
+
+
+def line(tag: str, **fields) -> None:
+    print(f"{tag}: " + json.dumps(fields, default=float), flush=True)
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def check_close(name, got, want, atol, rtol) -> dict:
+    """Hold ``got`` against ``want``: every element within atol + rtol *
+    |want|. ``max_rel_err`` is taken where the relative term dominates
+    (|want| >= atol / rtol); ``worst_over_tolerance`` <= 1 passes."""
+    want = want.float()
+    diff = (got.float() - want).abs()
+    bound = atol + rtol * want.abs()
+    big = want.abs() >= atol / rtol
+    out = {"max_abs_err": diff.max().item(),
+           "max_rel_err": (diff[big] / want.abs()[big]).max().item()
+           if bool(big.any()) else 0.0,
+           "atol": atol, "rtol": rtol,
+           "worst_over_tolerance": (diff / bound).max().item()}
+    if not bool(torch.isfinite(got).all()) or not bool((diff <= bound).all()):
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version: {out}")
+    return out
+
+
+@contextlib.contextmanager
+def plain_path():
+    """The model with each kernel's plain version in its place, on the
+    card: the yardstick the kernel path is held against. The package has
+    no such switch (a CUDA tensor always takes the kernel); this script
+    swaps the plain versions in where the model's blocks call them."""
+    from progen_tpu_torch.models import layers
+    from progen_tpu_torch.ops import cuda_attention, cuda_layers
+
+    with mock.patch.multiple(
+        layers,
+        local_attention_fwd=cuda_attention.local_attention_fwd_reference,
+        norm_shift=cuda_layers.norm_shift_reference,
+        sgu_mix_gate=cuda_layers.sgu_mix_gate_reference,
+    ):
+        yield
+
+
+def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations")
+
+
+def phase_build():
+    from progen_tpu_torch.ops import _build
+
+    t = time.perf_counter()
+    libs = _build.build_all()
+    seconds = time.perf_counter() - t
+    for name in libs:
+        _build.load(name)
+    line("build", seconds=seconds, kernels=sorted(libs))
+    return {name: _build.build_log(name) for name in libs}
+
+
+def phase_kernels(cfg, card: str) -> list:
+    """Each kernel against its plain version at the base shapes. Each
+    line gives the launches one forward must make (``per_forward``); the
+    counts the main path made are in the ``kernels`` table."""
+    import torch.nn.functional as F
+
+    from progen_tpu_torch.ops import cuda_attention, cuda_layers
+
+    dev, dt = torch.device("cuda"), cfg.compute_dtype
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, dtype=dt):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    rows = []
+    b, h, n, d, w = BATCH, cfg.heads, cfg.seq_len, cfg.dim_head, \
+        cfg.window_size
+    esize = torch.finfo(dt).bits // 8
+
+    # A1: local attention forward
+    q, k, v = randn(b, h, n, d), randn(b, h, n, d), randn(b, h, n, d)
+    fn = cuda_attention.local_attention_fwd
+    ref = cuda_attention.local_attention_fwd_reference
+    got = fn(q, k, v, w)
+    want = ref(q, k, v, w)
+    plain_ms = time_ms(lambda: ref(q, k, v, w), iters=3)
+    err = check_close("A1", got, want, 1e-2, 1e-2)
+    # one PyTorch call computing the same function: SDPA over keys padded
+    # with w zero keys that only window-0 queries see
+    zeros = torch.zeros(b, h, w, d, dtype=dt, device=dev)
+    kp, vp = torch.cat([zeros, k], 2), torch.cat([zeros, v], 2)
+    i = torch.arange(n, device=dev)[:, None]
+    j = torch.arange(n + w, device=dev)[None, :] - w
+    mask = torch.where(j < 0, i < w,
+                       (j <= i) & (i // w - j.clamp_min(0) // w <= 1))
+    lib = F.scaled_dot_product_attention(q, kp, vp, attn_mask=mask)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, kp, vp, attn_mask=mask), iters=5)
+    keys = sum((w if r >= w else 0) + (r % w) + 1 for r in range(n))
+    bnd = bound_ms(4 * b * h * n * d * esize, 4 * d * keys * b * h, dt)
+    rows.append(dict(
+        name="local_attention_fwd", id="A1", route="cuda",
+        source="progen_tpu_torch/csrc/local_attention_fwd.cu",
+        replaces="progen_tpu/ops/pallas_attention.py:552",
+        ms=time_ms(lambda: fn(q, k, v, w)), plain_ms=plain_ms,
+        library_ms=lib_ms, bound_ms=bnd[0], bound_by=bnd[1],
+        library_max_abs_err=(lib.float() - want.float()).abs().max().item(),
+        shape=[b, h, n, d], window=w, **err,
+    ))
+    del q, k, v, kp, vp, lib, got, want
+
+    # L1: norm + shift over the residual stream
+    x = randn(b, n, cfg.dim) * 2 + 0.5
+    scale = torch.rand(cfg.dim, generator=gen, device=dev) + 0.5
+    eps = cfg.layer_norm_epsilon
+    fn = cuda_layers.norm_shift
+    ref = cuda_layers.norm_shift_reference
+    got = fn(x, scale, eps, dt)
+    want = ref(x, scale, eps, dt)
+    plain_ms = time_ms(lambda: ref(x, scale, eps, dt))
+    err = check_close("L1", got, want, 1e-2, 1e-2)
+    bnd = bound_ms(2 * x.numel() * esize + 4 * cfg.dim, 7 * x.numel(), dt)
+    rows.append(dict(
+        name="norm_shift", id="L1", route="cuda",
+        source="progen_tpu_torch/csrc/norm_shift.cu",
+        replaces="progen_tpu/ops/pallas_layers.py:193",
+        ms=time_ms(lambda: fn(x, scale, eps, dt)), plain_ms=plain_ms,
+        library_ms=None, bound_ms=bnd[0], bound_by=bnd[1],
+        shape=list(x.shape), **err,
+    ))
+    del x, got, want
+
+    # L2: SGU tail, weights at ~1/sqrt(n) so an error in the mix shows
+    half = cfg.dim * cfg.ff_mult // 2
+    x, gate = randn(b, n, half), randn(b, n, half)
+    wts = randn(n, n, dtype=torch.float32) / n ** 0.5
+    bias = randn(n, 1, dtype=torch.float32)
+    scale = torch.rand(half, generator=gen, device=dev) + 0.5
+    fn = cuda_layers.sgu_mix_gate
+    ref = cuda_layers.sgu_mix_gate_reference
+    got = fn(x, gate, wts, bias, scale, eps, dt)
+    want = ref(x, gate, wts, bias, scale, eps, dt)
+    plain_ms = time_ms(lambda: ref(x, gate, wts, bias, scale, eps, dt),
+                       iters=3)
+    err = check_close("L2", got, want, 2e-2, 2e-2)
+    nbytes = 3 * x.numel() * esize + 4 * (n * n + n + half)
+    bnd = bound_ms(nbytes, 2 * b * half * n * (n + 1) // 2, torch.float32)
+    rows.append(dict(
+        name="sgu_mix_gate", id="L2", route="cuda",
+        source="progen_tpu_torch/csrc/sgu_mix_gate.cu",
+        replaces="progen_tpu/ops/pallas_layers.py:258",
+        ms=time_ms(lambda: fn(x, gate, wts, bias, scale, eps, dt)),
+        plain_ms=plain_ms, library_ms=None, bound_ms=bnd[0],
+        bound_by=bnd[1], shape=list(x.shape), **err,
+    ))
+    launches = per_forward(cfg)
+    for r in rows:
+        line(f"kernel {r['id']}", **{k: r[k] for k in (
+            "name", "shape", "max_abs_err", "max_rel_err", "atol", "rtol",
+            "worst_over_tolerance", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")},
+            launches_per_forward=launches[r["id"]], card=card)
+    line("kernels", status={r["id"]: "ok" for r in rows})
+    return rows
+
+
+def collate(strings, seq_len: int) -> torch.Tensor:
+    """Byte-tokenise and pad to (batch, seq_len + 1) with a BOS column."""
+    from progen_tpu_torch.data.tokenizer import encode_tokens
+
+    out = torch.zeros(len(strings), seq_len + 1, dtype=torch.long)
+    for i, s in enumerate(strings):
+        toks = torch.from_numpy(encode_tokens(s)[:seq_len]).long()
+        out[i, 1:1 + len(toks)] = toks
+    return out
+
+
+def launch_counts() -> dict:
+    from progen_tpu_torch.ops import cuda_attention, cuda_layers
+
+    return {"A1": cuda_attention.local_attention_fwd.launches,
+            "L1": cuda_layers.norm_shift.launches,
+            "L2": cuda_layers.sgu_mix_gate.launches}
+
+
+def reset_counts() -> None:
+    from progen_tpu_torch.ops import cuda_attention, cuda_layers
+
+    for fn in (cuda_attention.local_attention_fwd, cuda_layers.norm_shift,
+               cuda_layers.sgu_mix_gate):
+        fn.launches = 0
+
+
+def per_forward(cfg) -> dict:
+    return {"A1": cfg.depth, "L1": 2 * cfg.depth,
+            "L2": cfg.global_mlp_depth}
+
+
+def drive_main_path(cfg, model, batch, primes) -> dict:
+    """The main path as a user drives it, with every launch count set to
+    0 just before and read just after: score_step on the scoring batch
+    (one full forward through the kernels), then sample_fast_batched
+    answering the generation requests (the KV-cache decoder, which runs no
+    kernel)."""
+    from progen_tpu_torch.sampling import sample_fast_batched
+    from progen_tpu_torch.workloads.scoring import score_step
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    scores = score_step(model, batch, device="cuda")
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t
+    scored = launch_counts()
+    t = time.perf_counter()
+    seqs = sample_fast_batched(0, model, primes, GEN_LENGTH, top_k=25,
+                               add_bos=True, device="cuda")
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    counts = launch_counts()
+    want = per_forward(cfg)
+    if scored != want or counts != want:
+        raise AssertionError(f"main path launched {scored} while scoring "
+                             f"and {counts} in all, not {want}")
+    return dict(scores=scores, score_s=score_s, seqs=seqs, gen_s=gen_s,
+                launches=counts)
+
+
+def check_scores(cfg, model, model32, batch, run) -> dict:
+    """Phase 3's checks: shapes, finite values, the scored token counts,
+    and logits that agree with the same model on the plain path."""
+    nll, lp, mask = run["scores"]
+    if nll.shape != (BATCH,) or lp.shape != (BATCH, cfg.seq_len):
+        raise AssertionError("score_step shapes")
+    if not bool(torch.isfinite(nll).all() & torch.isfinite(lp).all()):
+        raise AssertionError("non-finite scores")
+    ntok = [int(m.sum()) for m in mask]
+    expect = [min(len(s) + 1, cfg.seq_len) for s in PROTEINS]
+    if ntok != expect:
+        raise AssertionError(f"scored token counts {ntok} != {expect}")
+
+    from progen_tpu_torch.training.loss import sequence_scores
+
+    ids, labels = batch[:, :-1].cuda(), batch[:, 1:].cuda()
+    with torch.inference_mode():
+        got = model(ids)
+        with plain_path():
+            plain = model(ids)
+            ref32 = model32(ids)
+    e_k = (got - ref32).abs().max().item()
+    e_p = (plain - ref32).abs().max().item()
+    d_kp = (got - plain).abs().max().item()
+    d_nll = (nll - sequence_scores(plain, labels)[0]).abs().max().item()
+    # The kernel path may be no further from the float32 forward than
+    # twice the plain bfloat16 path's distance (both round activations to
+    # bfloat16 at every layer), no logit further than LOGIT_ATOL from the
+    # plain path's, and its per-sequence NLL within 1e-2 nats.
+    if (not e_k <= 2 * e_p + 1e-3 or not d_kp <= LOGIT_ATOL
+            or not d_nll <= 1e-2):
+        raise AssertionError(f"logits: kernel vs f32 {e_k}, plain vs f32 "
+                             f"{e_p}, kernel vs plain {d_kp}, nll {d_nll}")
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: model(ids), iters=5, warmup=1)
+        with plain_path():
+            plain_fwd_ms = time_ms(lambda: model(ids), iters=3, warmup=1)
+    out = dict(score_step_s=run["score_s"], forward_ms=fwd_ms,
+               plain_forward_ms=plain_fwd_ms,
+               sequences_per_s=BATCH / (fwd_ms / 1e3), tokens=ntok,
+               mean_nll=nll.mean().item(), logits_kernel_vs_plain=d_kp,
+               logits_kernel_vs_f32=e_k, logits_plain_vs_f32=e_p,
+               nll_kernel_vs_plain=d_nll)
+    line("score", **out)
+    return out
+
+
+KERNEL_GROUPS = (  # kernel-name substring -> group in the breakdown
+    ("local_attention_fwd", "A1 local_attention_fwd"),
+    ("norm_shift", "L1 norm_shift"),
+    ("sgu_", "L2 sgu_mix_gate"),
+    ("nvjet", "matrix products"), ("gemm", "matrix products"),
+    ("xmma", "matrix products"), ("cutlass", "matrix products"),
+)
+
+
+def profile_forward(model, ids) -> dict:
+    """One full forward under torch.profiler: device time by kernel
+    group, the wall time, and the share of it the card sat idle. Reports
+    "not measured" when the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        model(ids)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            model(ids)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+    groups, top = {}, []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        ms = e.self_device_time_total / 1e3
+        group = next((g for key, g in KERNEL_GROUPS if key in e.key.lower()),
+                     "other (elementwise, copies, reductions)")
+        groups[group] = groups.get(group, 0.0) + ms
+        top.append((ms, e.count, e.key[:90]))
+    device_ms = sum(groups.values())
+    if device_ms == 0:
+        out = dict(wall_ms=wall_ms, device_ms="not measured")
+    else:
+        out = dict(wall_ms=wall_ms, device_ms=device_ms,
+                   idle_share=max(0.0, 1 - device_ms / wall_ms),
+                   by_group={g: groups[g] for g in sorted(
+                       groups, key=groups.get, reverse=True)},
+                   top_kernels=[dict(ms=m, count=c, name=n) for m, c, n
+                                in sorted(top, reverse=True)[:12]])
+    line("profile", **{k: v for k, v in out.items() if k != "top_kernels"})
+    return out
+
+
+def check_generation(cfg, model, model32, primes, run) -> dict:
+    """Phase 4's checks: shapes, token range, BOS and prime kept, nothing
+    after the second zero, and decode-mode logits that agree with the
+    full forward over the generated positions."""
+    seqs = run["seqs"]
+    if seqs.shape != (len(PRIMES), GEN_LENGTH) or seqs.device.type != "cuda":
+        raise AssertionError(f"sample shape {tuple(seqs.shape)}")
+    if int(seqs.min()) < 0 or int(seqs.max()) >= cfg.num_tokens:
+        raise AssertionError("token out of range")
+    if not bool((seqs[:, 0] == 0).all()):
+        raise AssertionError("BOS missing")
+    if not torch.equal(seqs[:, 1:1 + primes.shape[1]].cpu(),
+                       torch.from_numpy(primes).long()):
+        raise AssertionError("prime not kept")
+    after = torch.cumsum((seqs == 0).long(), dim=-1) > 1
+    if bool((seqs[after] != 0).any()):
+        raise AssertionError("tokens after the second zero")
+
+    with torch.inference_mode():
+        cache = model.init_cache(seqs.shape[0])
+        dec = torch.stack([model.decode_step(seqs[:, p], cache)
+                           for p in range(GEN_LENGTH)], dim=1)
+        padded = torch.zeros(seqs.shape[0], cfg.seq_len, dtype=torch.long,
+                             device=seqs.device)
+        padded[:, :GEN_LENGTH] = seqs
+        full = model(padded)[:, :GEN_LENGTH]
+        with plain_path():
+            plain = model(padded)[:, :GEN_LENGTH]
+            ref32 = model32(padded)[:, :GEN_LENGTH]
+    e_dec = (dec - ref32).abs().max().item()
+    e_p = (plain - ref32).abs().max().item()
+    d_df = (dec - full).abs().max().item()
+    # same rule as the scoring check: the decoder, in bfloat16, no further
+    # from the float32 full forward than twice the plain bfloat16 forward
+    if not e_dec <= 2 * e_p + 1e-3:
+        raise AssertionError(f"decode vs f32 {e_dec}, plain vs f32 {e_p}, "
+                             f"decode vs full {d_df}")
+    lengths = [int((~after[i]).sum()) for i in range(seqs.shape[0])]
+    steps = GEN_LENGTH - 1  # decode steps per request, prefill included
+    out = dict(requests=seqs.shape[0], length=GEN_LENGTH,
+               seconds=run["gen_s"], decode_steps_per_s=steps / run["gen_s"],
+               tokens_per_s=seqs.shape[0] * steps / run["gen_s"],
+               lengths=lengths, decode_vs_full=d_df, decode_vs_f32=e_dec,
+               plain_vs_f32=e_p)
+    line("generate", **out)
+    return out
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(
+        description="Drive the PyTorch port on one NVIDIA card.")
+    parser.add_argument("--details", type=Path,
+                        default=REPO / "build" / "chip_smoke.json",
+                        help="where to write the full results as JSON")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    from progen_tpu_torch import ProGen, ProGenConfig, load_toml_config
+    from progen_tpu_torch.data.tokenizer import encode_tokens
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+    logs = phase_build()
+    cfg = ProGenConfig.from_dict(load_toml_config(
+        str(REPO / "configs" / "model" / "base.toml")))
+    rows = phase_kernels(cfg, card)
+
+    t = time.perf_counter()
+    model = ProGen(cfg, device="cuda", seed=0).eval()
+    model32 = ProGen(dataclasses.replace(cfg, dtype="float32"),
+                     device="cuda", seed=None).eval()
+    model32.load_state_dict(model.state_dict())
+    line("model", params=sum(p.numel() for p in model.parameters()),
+         num_params=cfg.num_params(), init_s=time.perf_counter() - t)
+
+    batch = collate(PROTEINS, cfg.seq_len)
+    primes = np.stack([encode_tokens(s) for s in PRIMES])
+    run = drive_main_path(cfg, model, batch, primes)
+    result = {"launches": run["launches"],
+              "score": check_scores(cfg, model, model32, batch, run),
+              "generate": check_generation(cfg, model, model32, primes, run),
+              "profile": profile_forward(model, batch[:, :-1].cuda())}
+
+    counts = run["launches"]
+    table = [{
+        "name": r["name"], "route": r["route"], "source": r["source"],
+        "replaces": r["replaces"], "launches": counts[r["id"]],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+    } for r in rows]
+    args.details.parent.mkdir(parents=True, exist_ok=True)
+    args.details.write_text(json.dumps(
+        {"card": card, "kernels": rows, "main_path": result,
+         "build_logs": logs}, indent=1, default=float))
+    print(json.dumps({"kernels": table}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

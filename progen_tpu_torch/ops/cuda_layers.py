@@ -1,0 +1,117 @@
+"""Fused layer kernels: norm + token shift, and the SGU tail.
+
+* ``norm_shift`` replaces ``progen_tpu/ops/pallas_layers.py:
+  _norm_shift_pallas`` (body ``_norm_shift_kernel``): scale-only
+  LayerNorm with float32 stats and ``var = max(0, E[x^2] - E[x]^2)``,
+  then the first ``d - d//2`` channels shifted down one row (row 0
+  zero). Kernel: ``csrc/norm_shift.cu``.
+* ``sgu_mix_gate`` replaces ``pallas_layers.py:_sgu_pallas`` (body
+  ``_sgu_kernel``): normalise the gate, round it to the output dtype,
+  causal mix ``sum_{j<=m} W[m, j] g[j]`` with float32 W and float32
+  accumulation, add the bias, cast, then ``x * gate``. Kernel:
+  ``csrc/sgu_mix_gate.cu``.
+
+On the CPU each wrapper runs its plain version below
+(``norm_shift_reference``, ``sgu_mix_gate_reference``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from progen_tpu_torch.ops import _build
+from progen_tpu_torch.ops.dispatch import check_same_device, takes_kernel
+from progen_tpu_torch.ops.sgu import causal_sgu_mix
+from progen_tpu_torch.ops.shift import shift_tokens
+
+NORM_SHIFT_MAX_DIM = 2048
+
+
+def norm_reference(x, scale, epsilon, out_dtype):
+    """Scale-only LayerNorm over the last axis as flax computes it: f32
+    stats, biased variance ``max(0, E[x^2] - E[x]^2)``, the rsqrt*scale
+    product formed first."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    mu2 = (x32 * x32).mean(dim=-1, keepdim=True)
+    var = torch.clamp(mu2 - mu * mu, min=0.0)
+    y = (x32 - mu) * (torch.rsqrt(var + epsilon) * scale.float())
+    return y.to(out_dtype)
+
+
+def norm_shift_reference(x, scale, epsilon, out_dtype):
+    return shift_tokens(norm_reference(x, scale, epsilon, out_dtype))
+
+
+def sgu_mix_gate_reference(x, gate, weights, biases, scale, epsilon,
+                           out_dtype):
+    g = norm_reference(gate, scale, epsilon, out_dtype)
+    g = causal_sgu_mix(g, weights, biases)
+    return x * g.to(x.dtype)
+
+
+def norm_shift(x, scale, epsilon, out_dtype):
+    """x: (batch, n, d); scale: (d,). Returns (batch, n, d) in
+    ``out_dtype``."""
+    if not takes_kernel(x):
+        return norm_shift_reference(x, scale, epsilon, out_dtype)
+    if x.ndim != 3:
+        raise ValueError(f"x must be (batch, n, d), got {tuple(x.shape)}")
+    b, n, d = x.shape
+    if not 2 <= d <= NORM_SHIFT_MAX_DIM:
+        raise ValueError(f"kernel takes 2 <= d <= {NORM_SHIFT_MAX_DIM}, "
+                         f"got {d}")
+    if scale.shape != (d,):
+        raise ValueError(f"scale must be ({d},), got {tuple(scale.shape)}")
+    if out_dtype != x.dtype:
+        raise TypeError("kernel writes x's dtype")
+    check_same_device(x, scale)
+    x = x.contiguous()
+    scale = scale.float().contiguous()
+    out = torch.empty_like(x)
+    _build.launch(
+        "norm_shift", x.device,
+        x.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        b * n, n, d, float(epsilon), _build.dtype_code(x),
+    )
+    norm_shift.launches += 1
+    return out
+
+
+norm_shift.launches = 0
+
+
+def sgu_mix_gate(x, gate, weights, biases, scale, epsilon, out_dtype):
+    """x, gate: (batch, n, d) halves of the feed-forward hidden; weights
+    (n, n) and biases (n, 1) float32; scale (d,). Returns (batch, n, d)
+    in x's dtype."""
+    if not takes_kernel(gate):
+        return sgu_mix_gate_reference(x, gate, weights, biases, scale,
+                                      epsilon, out_dtype)
+    if gate.ndim != 3 or x.shape != gate.shape:
+        raise ValueError("x and gate must be one (batch, n, d) shape")
+    b, n, d = gate.shape
+    if weights.shape != (n, n) or biases.shape != (n, 1) or \
+            scale.shape != (d,):
+        raise ValueError("weights must be (n, n), biases (n, 1) and "
+                         "scale (d,)")
+    if not (x.dtype == gate.dtype == out_dtype):
+        raise TypeError("kernel takes x and gate in the output dtype")
+    check_same_device(x, gate, weights, biases, scale)
+    x, gate = x.contiguous(), gate.contiguous()
+    weights = weights.float().contiguous()
+    biases = biases.float().contiguous()
+    scale = scale.float().contiguous()
+    out = torch.empty_like(x)
+    stats = torch.empty((b * n, 2), dtype=torch.float32, device=x.device)
+    _build.launch(
+        "sgu_mix_gate", x.device,
+        x.data_ptr(), gate.data_ptr(), weights.data_ptr(),
+        biases.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        stats.data_ptr(), b, n, d, float(epsilon), _build.dtype_code(x),
+    )
+    sgu_mix_gate.launches += 1
+    return out
+
+
+sgu_mix_gate.launches = 0

@@ -1,0 +1,42 @@
+"""EOS-masked per-sequence scoring, the inference half of the JAX
+package's ``training/loss.py``.
+
+The padding token 0 doubles as end-of-string, so the mask keeps every
+non-pad position plus the first pad position (the EOS the model must
+emit). A sequence's score is the masked mean over its kept positions.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def masked_mean(t: torch.Tensor, mask: torch.Tensor, dim=None):
+    """Mean of ``t`` over positions where ``mask`` is set."""
+    mask = mask.to(t.dtype)
+    if dim is None:
+        return (t * mask).sum() / mask.sum()
+    return (t * mask).sum(dim=dim) / mask.sum(dim=dim)
+
+
+def eos_loss_mask(targets: torch.Tensor, ignore_index: int = 0):
+    """Positions that count: non-pad tokens plus the first pad position."""
+    nonpad = targets != ignore_index
+    first_pad = (~nonpad).long().cumsum(dim=-1) == 1
+    return nonpad | first_pad
+
+
+def token_logprobs(logits: torch.Tensor, targets: torch.Tensor):
+    """``log p(target)`` per position: logits (..., n, vocab), targets
+    (..., n) -> (..., n) float32."""
+    logprobs = torch.log_softmax(logits.float(), dim=-1)
+    return torch.gather(logprobs, -1, targets.long()[..., None])[..., 0]
+
+
+def sequence_scores(logits: torch.Tensor, targets: torch.Tensor, *,
+                    ignore_index: int = 0):
+    """(per_seq_nll, per_token_logprob, loss_mask); ``per_seq_nll`` has
+    shape ``logits.shape[:-2]``, the other two (..., n)."""
+    lp = token_logprobs(logits, targets)
+    mask = eos_loss_mask(targets, ignore_index)
+    return masked_mean(-lp, mask, dim=-1), lp, mask
