@@ -6,10 +6,12 @@
 Phases, one line each:
   1. build the CUDA kernels from progen_tpu_torch/csrc (one nvcc per
      source, all at once);
-  2. at the base model's shapes (configs/model/base.toml, batch 8), hold
-     each kernel against its plain PyTorch version on the card, and time
-     the kernel, the plain version and, where one exists, a single
-     PyTorch call computing the same function;
+  2. at the base model's shapes (configs/model/base.toml), hold each
+     kernel against its plain PyTorch version on the card, and time the
+     kernel, the plain version and, where one exists, a single PyTorch
+     call computing the same function: the forward kernels at the
+     scoring batch of 8, the attention backwards A2 (kv-centric) and A3
+     (halo) at the training micro-batch of 4;
   3. the main path, driven once with the launch counts set to 0 just
      before and read just after: the base model (dim 1024, depth 24,
      heads 16, dim_head 64, window 512, seq_len 1024, ~401M parameters,
@@ -22,20 +24,37 @@ Phases, one line each:
      tokens, with logits that agree with the same model on the plain
      path (each kernel's plain version swapped in by this script); the
      generated sequences well formed, and the decoder's logits in
-     agreement with the full forward over their 256 positions.
+     agreement with the full forward over their 256 positions;
+  5. the train path, with the launch counts set to 0 just before and read
+     just after: init_train_state at base (remat on), then 3 optimizer
+     steps of make_train_step on (4, 4, 1025) protein batches (the JAX
+     CLI's --batch_size 4 --grad_accum_every 4, lr 2e-4, weight decay
+     1e-3, clip 0.5): each step must launch A1 192, A2 96, L1 384 and L2
+     16 times (remat runs every forward kernel twice a micro-batch);
+  6. the checks of the train path: finite losses and grad norms, no
+     skipped step, a lower loss on the repeated batch after the 3 steps;
+     then, on a batch of the proteins back to back with no padding (so
+     every window's rows get a gradient), one micro-batch's gradients
+     through the kernels against the plain path and a float32 plain
+     model, and one step twice from the same state: with A2 and, on a
+     copy of the state, with the attention backward switched to A3
+     ("halo"), counted on its own (A3 96, A2 0), whose gradients must
+     agree with the A2 step's; then one plain A2 step, profiled by kernel
+     group.
 
 Plain-path comparisons run with TF32 off for matrix products and
 convolutions (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 are set False). Any failure exits
 non-zero. The line before the last holds the card's name and power limit,
 the one before it the kernel table as JSON; the last line is the result.
-The full results (every kernel row, the main path's checks, a profile of
-one forward by kernel group, the nvcc logs) go to ``--details`` as JSON,
-by default build/chip_smoke.json.
+The full results (every kernel row, the main path's checks, profiles of
+one forward and one train step by kernel group, the nvcc logs) go to
+``--details`` as JSON, by default build/chip_smoke.json.
 """
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import json
 import subprocess
@@ -50,6 +69,17 @@ import torch
 REPO = Path(__file__).resolve().parent
 BATCH = 8
 GEN_LENGTH = 256
+TRAIN_ACCUM, TRAIN_MICRO, TRAIN_STEPS = 4, 4, 3
+# per parameter tensor, the cosine between the kernel path's gradient and
+# the float32 plain model's
+GRAD_COS = 0.99
+# per parameter tensor, A3's gradient against A2's on the same weights and
+# batch: relative distance and cosine. The two backwards differ only in
+# the order of dk's and dv's float32 sums before one bfloat16 rounding,
+# but the flipped roundings compound through 24 layers of input gradient
+# into the embedding's (0.006 on an H100), a tenth of the plain bfloat16
+# path's own distance from float32
+HALO_REL, HALO_COS = 2e-2, 0.9999
 # largest logit gap allowed between the kernel and plain bfloat16 paths of
 # the base model (measured 0.136 on an H100: the two round differently)
 LOGIT_ATOL = 0.3
@@ -108,18 +138,28 @@ def check_close(name, got, want, atol, rtol) -> dict:
     return out
 
 
+def plain_attention(q, k, v, window_size, scale=None, bwd_impl="kv"):
+    """The attention forward's plain version; autograd differentiates it,
+    so its backward is plain too."""
+    from progen_tpu_torch.ops import cuda_attention
+
+    return cuda_attention.local_attention_fwd_reference(q, k, v,
+                                                        window_size, scale)
+
+
 @contextlib.contextmanager
 def plain_path():
-    """The model with each kernel's plain version in its place, on the
-    card: the yardstick the kernel path is held against. The package has
-    no such switch (a CUDA tensor always takes the kernel); this script
-    swaps the plain versions in where the model's blocks call them."""
+    """The model with each kernel's plain version in its place, forward
+    and backward, on the card: the yardstick the kernel path is held
+    against. The package has no such switch (a CUDA tensor always takes
+    the kernel); this script swaps the plain versions in where the
+    model's blocks call them."""
     from progen_tpu_torch.models import layers
-    from progen_tpu_torch.ops import cuda_attention, cuda_layers
+    from progen_tpu_torch.ops import cuda_layers
 
     with mock.patch.multiple(
         layers,
-        local_attention_fwd=cuda_attention.local_attention_fwd_reference,
+        local_attention=plain_attention,
         norm_shift=cuda_layers.norm_shift_reference,
         sgu_mix_gate=cuda_layers.sgu_mix_gate_reference,
     ):
@@ -131,6 +171,14 @@ def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
     t_ops = ops / PEAK_OPS[dtype] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations")
+
+
+def visible_pairs(n: int, w: int) -> int:
+    """(query, key) pairs of one head's local attention that a query
+    sees: its own window up to itself, and the whole previous window.
+    Window 0's phantom zero keys are left out: they add nothing to any
+    product."""
+    return sum((w if r >= w else 0) + (r % w) + 1 for r in range(n))
 
 
 def phase_build():
@@ -183,8 +231,8 @@ def phase_kernels(cfg, card: str) -> list:
     lib = F.scaled_dot_product_attention(q, kp, vp, attn_mask=mask)
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
         q, kp, vp, attn_mask=mask), iters=5)
-    keys = sum((w if r >= w else 0) + (r % w) + 1 for r in range(n))
-    bnd = bound_ms(4 * b * h * n * d * esize, 4 * d * keys * b * h, dt)
+    bnd = bound_ms(4 * b * h * n * d * esize,
+                   2 * 2 * d * visible_pairs(n, w) * b * h, dt)
     rows.append(dict(
         name="local_attention_fwd", id="A1", route="cuda",
         source="progen_tpu_torch/csrc/local_attention_fwd.cu",
@@ -240,14 +288,78 @@ def phase_kernels(cfg, card: str) -> list:
         plain_ms=plain_ms, library_ms=None, bound_ms=bnd[0],
         bound_by=bnd[1], shape=list(x.shape), **err,
     ))
-    launches = per_forward(cfg)
+    del x, gate, got, want
+
+    rows += backward_rows(cfg, gen)
+    fwd, step = per_forward(cfg), per_step(cfg)
     for r in rows:
         line(f"kernel {r['id']}", **{k: r[k] for k in (
             "name", "shape", "max_abs_err", "max_rel_err", "atol", "rtol",
             "worst_over_tolerance", "ms", "plain_ms", "library_ms",
             "bound_ms", "bound_by")},
-            launches_per_forward=launches[r["id"]], card=card)
+            launches_per_forward=fwd[r["id"]],
+            launches_per_step=step[r["id"]], card=card)
     line("kernels", status={r["id"]: "ok" for r in rows})
+    return rows
+
+
+def backward_rows(cfg, gen) -> list:
+    """A2 and A3 (with its combine) against their plain backwards at the
+    base training shapes: micro-batch 4, bh = 64, n 1024, w 512, d 64."""
+    import torch.nn.functional as F
+
+    from progen_tpu_torch.ops import cuda_attention
+
+    dev, dt = gen.device, cfg.compute_dtype
+    b, h, n, d, w = TRAIN_MICRO, cfg.heads, cfg.seq_len, cfg.dim_head, \
+        cfg.window_size
+    bh, esize = b * h, torch.finfo(dt).bits // 8
+    q, k, v, do = (torch.randn((b, h, n, d), generator=gen,
+                               device=dev).to(dt) for _ in range(4))
+    # one PyTorch call computing the same function: the backward of
+    # scaled_dot_product_attention over keys padded with the w phantom
+    # zero keys, which only window-0 queries see (as A1's row builds it),
+    # taken as autograd.grad of the retained forward graph
+    zeros = torch.zeros(b, h, w, d, dtype=dt, device=dev)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    kp = torch.cat([zeros, leaves[1]], 2)
+    vp = torch.cat([zeros, leaves[2]], 2)
+    i = torch.arange(n, device=dev)[:, None]
+    j = torch.arange(n + w, device=dev)[None, :] - w
+    mask = torch.where(j < 0, i < w,
+                       (j <= i) & (i // w - j.clamp_min(0) // w <= 1))
+    out = F.scaled_dot_product_attention(leaves[0], kp, vp, attn_mask=mask)
+    lib_ms = time_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                                 retain_graph=True))
+    del out, kp, vp, leaves
+    # the function's least work, one bound for A2 and A3 alike: q, k, v
+    # and dO read once, dq, dk and dv written once; five products (S, dP,
+    # dV, dQ, dK) of 2·d operations over the (query, key) pairs a query
+    # sees. A2's recompute of the next window's rows and A3's float32
+    # scratch are the kernels' own cost, not the function's.
+    bnd = bound_ms(7 * bh * n * d * esize,
+                   5 * 2 * d * visible_pairs(n, w) * bh, dt)
+    rows = []
+    for rid, impl in (("A2", "kv"), ("A3", "halo")):
+        fn = getattr(cuda_attention, f"local_attention_bwd_{impl}")
+        ref = getattr(cuda_attention, f"local_attention_bwd_{impl}_reference")
+        got = fn(q, k, v, do, w)
+        want = ref(q, k, v, do, w)
+        errs = [check_close(f"{rid} {g}", a, c, 1e-2, 1e-2)
+                for g, a, c in zip(("dq", "dk", "dv"), got, want)]
+        err = max(errs, key=lambda e: e["worst_over_tolerance"])
+        plain_ms = time_ms(lambda: ref(q, k, v, do, w), iters=3)
+        rows.append(dict(
+            name=f"local_attention_bwd_{impl}", id=rid, route="cuda",
+            source=f"progen_tpu_torch/csrc/local_attention_bwd_{impl}.cu",
+            replaces="progen_tpu/ops/pallas_attention.py:"
+                     + ("652" if impl == "kv" else "683"),
+            ms=time_ms(lambda: fn(q, k, v, do, w)), plain_ms=plain_ms,
+            library_ms=lib_ms, bound_ms=bnd[0], bound_by=bnd[1],
+            shape=[b, h, n, d], window=w,
+            errors=dict(zip(("dq", "dk", "dv"), errs)), **err,
+        ))
+        del got, want
     return rows
 
 
@@ -262,25 +374,40 @@ def collate(strings, seq_len: int) -> torch.Tensor:
     return out
 
 
-def launch_counts() -> dict:
+def wrappers() -> dict:
+    """Kernel id -> its wrapper, which counts its launches."""
     from progen_tpu_torch.ops import cuda_attention, cuda_layers
 
-    return {"A1": cuda_attention.local_attention_fwd.launches,
-            "L1": cuda_layers.norm_shift.launches,
-            "L2": cuda_layers.sgu_mix_gate.launches}
+    return {"A1": cuda_attention.local_attention_fwd,
+            "A2": cuda_attention.local_attention_bwd_kv,
+            "A3": cuda_attention.local_attention_bwd_halo,
+            "L1": cuda_layers.norm_shift,
+            "L2": cuda_layers.sgu_mix_gate}
+
+
+def launch_counts() -> dict:
+    return {rid: fn.launches for rid, fn in wrappers().items()}
 
 
 def reset_counts() -> None:
-    from progen_tpu_torch.ops import cuda_attention, cuda_layers
-
-    for fn in (cuda_attention.local_attention_fwd, cuda_layers.norm_shift,
-               cuda_layers.sgu_mix_gate):
+    for fn in wrappers().values():
         fn.launches = 0
 
 
 def per_forward(cfg) -> dict:
-    return {"A1": cfg.depth, "L1": 2 * cfg.depth,
+    return {"A1": cfg.depth, "A2": 0, "A3": 0, "L1": 2 * cfg.depth,
             "L2": cfg.global_mlp_depth}
+
+
+def per_step(cfg, impl: str = "kv") -> dict:
+    """Launches of one train step: with remat each forward kernel runs in
+    the forward and again in the recompute, once a micro-batch; the
+    attention backward once a layer and micro-batch."""
+    fwd = {k: v * TRAIN_ACCUM * (2 if cfg.remat else 1)
+           for k, v in per_forward(cfg).items()}
+    bwd = cfg.depth * TRAIN_ACCUM
+    return {**fwd, "A2": bwd if impl == "kv" else 0,
+            "A3": bwd if impl == "halo" else 0}
 
 
 def drive_main_path(cfg, model, batch, primes) -> dict:
@@ -362,6 +489,10 @@ def check_scores(cfg, model, model32, batch, run) -> dict:
 
 KERNEL_GROUPS = (  # kernel-name substring -> group in the breakdown
     ("local_attention_fwd", "A1 local_attention_fwd"),
+    # the row pass and the key pass of A2 (the profiled step runs "kv")
+    ("rows_kernel", "A2 local_attention_bwd_kv"),
+    ("kv_kernel", "A2 local_attention_bwd_kv"),
+    ("halo_kernel", "A3 local_attention_bwd_halo"),
     ("norm_shift", "L1 norm_shift"),
     ("sgu_", "L2 sgu_mix_gate"),
     ("nvjet", "matrix products"), ("gemm", "matrix products"),
@@ -370,21 +501,26 @@ KERNEL_GROUPS = (  # kernel-name substring -> group in the breakdown
 
 
 def profile_forward(model, ids) -> dict:
-    """One full forward under torch.profiler: device time by kernel
-    group, the wall time, and the share of it the card sat idle. Reports
-    "not measured" when the profiler saw no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """One full forward under torch.profiler (see ``profile_groups``)."""
     with torch.inference_mode():
         model(ids)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            model(ids)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t) * 1e3
+        return profile_groups(lambda: model(ids), "profile")
+
+
+def profile_groups(fn, tag: str) -> dict:
+    """``fn()`` once under torch.profiler: device time by kernel group,
+    the wall time, and the share of it the card sat idle. Reports "not
+    measured" when the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
     groups, top = {}, []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
@@ -404,7 +540,7 @@ def profile_forward(model, ids) -> dict:
                        groups, key=groups.get, reverse=True)},
                    top_kernels=[dict(ms=m, count=c, name=n) for m, c, n
                                 in sorted(top, reverse=True)[:12]])
-    line("profile", **{k: v for k, v in out.items() if k != "top_kernels"})
+    line(tag, **{k: v for k, v in out.items() if k != "top_kernels"})
     return out
 
 
@@ -456,6 +592,195 @@ def check_generation(cfg, model, model32, primes, run) -> dict:
     return out
 
 
+def train_batch(cfg) -> torch.Tensor:
+    """(grad_accum, micro_batch, seq_len + 1): the script's proteins,
+    byte-tokenised and padded, twice over in two orders."""
+    strings = PROTEINS + PROTEINS[::-1]
+    return collate(strings, cfg.seq_len).reshape(
+        TRAIN_ACCUM, TRAIN_MICRO, cfg.seq_len + 1).cuda()
+
+
+def full_batch(cfg) -> torch.Tensor:
+    """(grad_accum, micro_batch, seq_len + 1) with no padding: the
+    proteins back to back, cut into rows after a BOS. Every position
+    counts in the loss, so every query row of every window gets a
+    gradient (in a padded batch, the rows past a sequence's first pad get
+    none: they are masked out of the loss and nothing before them reads
+    them)."""
+    from progen_tpu_torch.data.tokenizer import encode_tokens
+
+    rows, n = TRAIN_ACCUM * TRAIN_MICRO, cfg.seq_len
+    stream = np.concatenate([encode_tokens(s) for s in PROTEINS])
+    stream = np.tile(stream, rows * n // len(stream) + 1)[:rows * n]
+    out = torch.zeros(rows, n + 1, dtype=torch.long)
+    out[:, 1:] = torch.from_numpy(stream.reshape(rows, n).astype(np.int64))
+    return out.reshape(TRAIN_ACCUM, TRAIN_MICRO, n + 1).cuda()
+
+
+def drive_train_path(cfg, state, batch) -> dict:
+    """Phase 5, the train path as a user drives it: 3 steps of
+    make_train_step on one batch, with every launch count set to 0 just
+    before and read just after. Times each step with CUDA events and
+    takes the peak device memory over the steps."""
+    from progen_tpu_torch.training.step import make_eval_step, make_train_step
+
+    step, evaluate = make_train_step(), make_eval_step()
+    loss_before = evaluate(state, batch[0]).item()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    steps = []
+    for _ in range(TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, m = step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        steps.append(dict(ms=start.elapsed_time(end),
+                          **{k: v.item() for k, v in m.items()}))
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: v * TRAIN_STEPS for k, v in per_step(cfg).items()}
+    if counts != want:
+        raise AssertionError(f"train path launched {counts}, not {want}")
+    loss_after = evaluate(state, batch[0]).item()
+    tokens = TRAIN_ACCUM * TRAIN_MICRO * cfg.seq_len
+    warm = [s["ms"] for s in steps[1:]]
+    out = dict(steps=steps, launches=counts,
+               launches_per_step=per_step(cfg),
+               step_ms=sum(warm) / len(warm),
+               tokens_per_s=tokens / (sum(warm) / len(warm) / 1e3),
+               first_step_ms=steps[0]["ms"], tokens_per_step=tokens,
+               peak_memory_bytes=peak, loss_before=loss_before,
+               loss_after=loss_after)
+    line("train", **{k: v for k, v in out.items() if k != "steps"})
+    for i, st in enumerate(steps):
+        line(f"train step {i + 1}", **st)
+    return out
+
+
+def rel_cos(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """(|a - b| / |b|, cosine of a and b), over the whole tensor."""
+    a, b = a.double().flatten(), b.double().flatten()
+    nb = b.norm().item()
+    rel = (a - b).norm().item() / nb if nb > 0 else (a - b).norm().item()
+    cos = (a @ b).item() / max(a.norm().item() * nb, 1e-300)
+    return rel, cos
+
+
+def grads_of(model, data) -> dict:
+    """One micro-batch's gradients of the train loss."""
+    from progen_tpu_torch.training.step import batch_loss
+
+    model.zero_grad(set_to_none=True)
+    batch_loss(model, data).backward()
+    out = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def check_gradients(cfg, state, batch) -> dict:
+    """Phase 6a: one micro-batch's gradients through the kernels against
+    the same model on the plain path (bfloat16) and a float32 plain
+    model. Per parameter tensor, the kernel path's relative distance from
+    the float32 gradient may be at most twice the plain bfloat16 path's
+    (plus 1e-3), and its cosine with it at least GRAD_COS."""
+    from progen_tpu_torch import ProGen
+
+    model = state.model
+    model32 = ProGen(dataclasses.replace(cfg, dtype="float32"),
+                     device="cuda", seed=None)
+    model32.load_state_dict(model.state_dict())
+    data = batch[0]
+    got = grads_of(model, data)
+    with plain_path():
+        plain = grads_of(model, data)
+        ref32 = grads_of(model32, data)
+    del model32
+    worst, bad = [], []
+    for name in got:
+        rel_k, cos_k = rel_cos(got[name], ref32[name])
+        rel_p, _ = rel_cos(plain[name], ref32[name])
+        worst.append((rel_k - 2 * rel_p, name, rel_k, rel_p, cos_k))
+        if not (rel_k <= 2 * rel_p + 1e-3 and cos_k >= GRAD_COS):
+            bad.append((name, rel_k, rel_p, cos_k))
+    worst.sort(reverse=True)
+    out = dict(tensors=len(got), min_cos=min(w[4] for w in worst),
+               max_rel_kernel=max(w[2] for w in worst),
+               max_rel_plain=max(w[3] for w in worst),
+               worst=[dict(name=w[1], rel_kernel=w[2], rel_plain=w[3],
+                           cos=w[4]) for w in worst[:5]])
+    line("grad check", **{k: v for k, v in out.items() if k != "worst"},
+         worst=out["worst"][0])
+    if bad:
+        raise AssertionError(f"kernel-path gradients off: {bad[:5]}")
+    return out
+
+
+def step_grads(step, state, batch) -> tuple:
+    """One ``step(state, batch)``; returns the averaged, unclipped
+    gradients it hands the optimizer, and its metrics."""
+    sink, update = [], state.optimizer.update
+
+    def record(grads, norm=None):
+        sink.append({n: g.clone() for n, g in grads.items()})
+        return update(grads, norm)
+
+    with mock.patch.object(state.optimizer, "update", record):
+        _, m = step(state, batch)
+    return sink[0], m
+
+
+def halo_step(cfg, state, batch) -> dict:
+    """Phase 6b: the same step from one state twice, with A2 and, on a
+    copy of the state, with the attention backward switched to A3, whose
+    launches are counted on their own. The gradients the two hand to the
+    optimizer must agree per tensor (HALO_REL, HALO_COS). Then one more A2
+    step, with nothing recorded, profiled by kernel group."""
+    from progen_tpu_torch.models import layers
+    from progen_tpu_torch.training.step import make_train_step
+
+    step, twin = make_train_step(), copy.deepcopy(state)
+    kv, _ = step_grads(step, state, batch)
+    reset_counts()
+    with mock.patch.object(layers, "ATTN_BWD_IMPL", "halo"):
+        halo, m = step_grads(step, twin, batch)
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    del twin
+    want = per_step(cfg, "halo")
+    if counts != want:
+        raise AssertionError(f"halo step launched {counts}, not {want}")
+    stats = [(*rel_cos(halo[n], kv[n]), n) for n in kv]
+    rel = max(stats)
+    cos = min(stats, key=lambda x: x[1])
+    out = dict(launches=counts, max_rel=rel[0], max_rel_tensor=rel[2],
+               min_cos=cos[1], min_cos_tensor=cos[2],
+               tensors_differing=sum(not torch.equal(halo[n], kv[n])
+                                     for n in kv), tensors=len(kv),
+               loss=m["loss"].item(), grad_norm=m["grad_norm"].item(),
+               skipped=int(m["skipped"]))
+    line("halo step", **out)
+    if not (rel[0] <= HALO_REL and cos[1] >= HALO_COS):
+        raise AssertionError(f"A3 step's gradients off A2's: {out}")
+    del kv, halo
+    profile = profile_groups(lambda: step(state, batch), "train profile")
+    return dict(out, profile=profile)
+
+
+def check_training(run: dict) -> None:
+    """Phase 6c: every loss and grad norm finite, no step refused, and a
+    lower loss on the repeated batch after the steps than before."""
+    for st in run["steps"]:
+        if not (np.isfinite(st["loss"]) and np.isfinite(st["grad_norm"])
+                and st["skipped"] == 0):
+            raise AssertionError(f"train step not finite or skipped: {st}")
+    if not run["loss_after"] < run["loss_before"]:
+        raise AssertionError(f"loss did not fall: {run['loss_before']} -> "
+                             f"{run['loss_after']}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(
         description="Drive the PyTorch port on one NVIDIA card.")
@@ -497,8 +822,29 @@ def main() -> int:
               "score": check_scores(cfg, model, model32, batch, run),
               "generate": check_generation(cfg, model, model32, primes, run),
               "profile": profile_forward(model, batch[:, :-1].cuda())}
+    del model, model32
 
-    counts = run["launches"]
+    from progen_tpu_torch.training.step import init_train_state
+
+    t = time.perf_counter()
+    state = init_train_state(cfg, device="cuda", seed=0)
+    line("train state", params=state.num_params(),
+         init_s=time.perf_counter() - t, remat=cfg.remat)
+    train = drive_train_path(cfg, state, train_batch(cfg))
+    check_training(train)
+    result["train"] = train
+    fbatch = full_batch(cfg)
+    result["grad_check"] = check_gradients(cfg, state, fbatch)
+    result["halo_step"] = halo_step(cfg, state, fbatch)
+
+    # each kernel's launches, summed over the paths driven with counts:
+    # scoring + generation, the 3 train steps, the A3 step
+    counts = {k: run["launches"][k] + train["launches"][k]
+              + result["halo_step"]["launches"][k] for k in run["launches"]}
+    line("launches", inference=run["launches"], train=train["launches"],
+         halo_step=result["halo_step"]["launches"], total=counts)
+    if not all(counts.values()):
+        raise AssertionError(f"a kernel was never launched: {counts}")
     table = [{
         "name": r["name"], "route": r["route"], "source": r["source"],
         "replaces": r["replaces"], "launches": counts[r["id"]],

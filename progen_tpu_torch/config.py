@@ -5,12 +5,13 @@ parameter count as ``progen_tpu/config.py``, so every
 ``configs/model/*.toml`` loads unchanged into either package.
 
 The TPU knobs ``use_pallas_attn``, ``use_fused_layer_kernels``,
-``pallas_bh_block``, ``pallas_layer_block``, ``scan_layers`` and ``remat``
-are kept so those files load, but on CUDA they select nothing: the port's
+``pallas_bh_block``, ``pallas_layer_block`` and ``scan_layers`` are kept
+so those files load, but on CUDA they select nothing: the port's
 full-sequence forward always runs its hand-written kernels (local
 attention, fused norm + token shift, fused SGU tail), so no plain version
 runs on the card's main path. ``scan_layers`` only names the layout of a
 flax checkpoint the weight bridge (``convert.py``) reads or writes.
+``remat`` recomputes each block in the backward, as ``nn.remat`` does.
 """
 
 from __future__ import annotations

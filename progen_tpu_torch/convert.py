@@ -11,6 +11,12 @@ q | k | v feature order, each (heads, dim_head), through the transpose.
 A ``scan_layers`` tree stacks the uniform layers under ``layers``; it is
 unstacked here (and stacked on the way back) in numpy. Every leaf is
 copied exactly, so a round trip is bit-equal.
+
+The optimizer state crosses the same way: optax's Adam ``count``, ``mu``
+and ``nu`` (``ScaleByAdamState``, wherever it sits in the chain's state)
+go through the params' leaf map and transposes into the port's
+``MaskedAdamW.state_dict()`` form, and back as a plain
+``{"count", "mu", "nu"}`` tree of numpy arrays.
 """
 
 from __future__ import annotations
@@ -148,3 +154,46 @@ def state_dict_to_flax_params(sd: dict, config: ProGenConfig,
     if config.scan_layers if scan_layers is None else scan_layers:
         tree = _stack(tree, config)
     return tree
+
+
+_ADAM = {"count", "mu", "nu"}
+
+
+def _adam_node(opt_state) -> dict:
+    """count, mu and nu of the two layouts that exist: a plain dict of
+    those keys, or the JAX package's ``chain(clip_by_global_norm, adamw)``
+    state, whose ScaleByAdamState sits at ``opt_state[1][0]``."""
+    if isinstance(opt_state, dict) and _ADAM <= opt_state.keys():
+        return opt_state
+    try:
+        adam = opt_state[1][0]
+    except (TypeError, IndexError, KeyError):
+        adam = None
+    if _ADAM <= set(getattr(adam, "_fields", ())):
+        return adam._asdict()
+    raise ValueError("no Adam state (count, mu, nu): expected a dict of "
+                     "those keys or a chain(clip, adamw) state")
+
+
+def flax_opt_state_to_torch(opt_state, config: ProGenConfig) -> dict:
+    """An optax optimizer state of numpy arrays (the JAX package's
+    ``chain(clip_by_global_norm, adamw)`` state, or a plain ``{"count",
+    "mu", "nu"}`` tree) -> ``{"count": int, "mu": state_dict, "nu":
+    state_dict}`` of float32 CPU tensors, for
+    ``MaskedAdamW.load_state_dict``."""
+    adam = _adam_node(opt_state)
+    return {"count": int(np.asarray(adam["count"])),
+            "mu": flax_params_to_state_dict(adam["mu"], config),
+            "nu": flax_params_to_state_dict(adam["nu"], config)}
+
+
+def torch_opt_state_to_flax(state: dict, config: ProGenConfig,
+                            scan_layers: bool | None = None) -> dict:
+    """``MaskedAdamW.state_dict()`` -> ``{"count": int32, "mu": tree,
+    "nu": tree}`` of numpy arrays, the trees laid out as
+    ``state_dict_to_flax_params`` lays out the params."""
+    return {"count": np.asarray(state["count"], dtype=np.int32),
+            "mu": state_dict_to_flax_params(state["mu"], config,
+                                            scan_layers),
+            "nu": state_dict_to_flax_params(state["nu"], config,
+                                            scan_layers)}

@@ -9,8 +9,10 @@ configured dtype (weights, biases and inputs cast to it, as flax's
 
 The full-sequence path runs the kernels through their wrappers
 (``ops/cuda_attention.py``, ``ops/cuda_layers.py``): on the card the
-CUDA kernels, on the CPU their plain versions. The one-token decode path
-runs plain PyTorch against an explicit per-layer cache.
+CUDA kernels, on the CPU their plain versions; each wrapper is
+differentiable, and the attention backward is the kernel that
+``ATTN_BWD_IMPL`` names. The one-token decode path runs plain PyTorch
+against an explicit per-layer cache.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from torch import nn
 
 from progen_tpu_torch.config import ProGenConfig
 from progen_tpu_torch.ops.attention import ATTN_MASK_VALUE
-from progen_tpu_torch.ops.cuda_attention import local_attention_fwd
+from progen_tpu_torch.ops.cuda_attention import local_attention
 from progen_tpu_torch.ops.cuda_layers import (
     norm_reference,
     norm_shift,
@@ -31,6 +33,11 @@ from progen_tpu_torch.ops.cuda_layers import (
 )
 from progen_tpu_torch.ops.rotary import apply_rotary_pos_emb
 from progen_tpu_torch.ops.shift import shift_tokens
+
+# The attention backward: A2 ("kv"), the JAX package's default and its
+# policy's choice at window 512 (pallas_attention.py:355-360), or A3
+# ("halo"). The port takes no entry from the TPU's pallas_policy.json.
+ATTN_BWD_IMPL = "kv"
 
 
 class Dense(nn.Module):
@@ -140,7 +147,8 @@ class LocalAttentionBlock(nn.Module):
     def forward(self, x, sin, cos):
         c = self.config
         q, k, v = self._qkv(_head(self.norm, c, x), sin, cos)
-        return self._out(local_attention_fwd(q, k, v, c.window_size))
+        return self._out(local_attention(q, k, v, c.window_size,
+                                         bwd_impl=ATTN_BWD_IMPL))
 
     def new_cache(self, batch: int, device) -> AttnCache:
         c = self.config

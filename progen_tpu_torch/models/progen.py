@@ -6,7 +6,11 @@ Counterpart of ``progen_tpu/models/progen.py``: token embedding ->
 GLU), then a scale-only norm and a linear logits head. Params in float32,
 compute in ``config.dtype``, logits in float32.
 
-``forward`` runs the full sequence through the kernels. ``decode_step``
+``forward`` runs the full sequence through the kernels. With
+``config.remat`` set and autograd recording, each attention and each
+feed-forward block is recomputed in the backward
+(``torch.utils.checkpoint``), the counterpart of ``nn.remat`` per block.
+``decode_step``
 takes one token per row and carries a ``DecodeCache`` (rolling 2-window
 K/V ring, token-shift states, SGU gate history), as the JAX model's
 ``config.decode`` mode does; its logits at each position equal the full
@@ -21,6 +25,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from progen_tpu_torch._device import resolve_device
 from progen_tpu_torch.config import ProGenConfig
@@ -140,9 +145,14 @@ class ProGen(nn.Module):
                              f"window_size={self.config.window_size}")
         x = self._embed(tokens)
         sin, cos = self._tables(tokens.shape[-1])
+        remat = self.config.remat and torch.is_grad_enabled()
         for attn, ff in zip(self.attn, self.ff):
-            x = x + attn(x, sin, cos)
-            x = x + ff(x)
+            if remat:
+                x = x + checkpoint(attn, x, sin, cos, use_reentrant=False)
+                x = x + checkpoint(ff, x, use_reentrant=False)
+            else:
+                x = x + attn(x, sin, cos)
+                x = x + ff(x)
         return self._logits(x)
 
     def init_cache(self, batch: int) -> DecodeCache:

@@ -38,6 +38,13 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # q, k, v, out, bh, n, window, dim_head, scale, dtype, stream
     "local_attention_fwd": (P, P, P, P, I, I, I, I, F, I, P),
+    # q, k, v, dout, dq, dk, dv, stats, bh, n, window, dim_head, scale,
+    # dtype, stream
+    "local_attention_bwd_kv": (P, P, P, P, P, P, P, P, I, I, I, I, F, I, P),
+    # q, k, v, dout, dq, dk2, dv2, stats, bh, n, window, dim_head, scale,
+    # dtype, stream
+    "local_attention_bwd_halo": (P, P, P, P, P, P, P, P, I, I, I, I, F, I,
+                                 P),
     # x, scale, out, rows, n, d, eps, dtype, stream
     "norm_shift": (P, P, P, I, I, I, F, I, P),
     # x, gate, weights, biases, scale, out, stats, batch, n, d, eps, dtype,

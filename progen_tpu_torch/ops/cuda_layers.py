@@ -11,8 +11,15 @@
   accumulation, add the bias, cast, then ``x * gate``. Kernel:
   ``csrc/sgu_mix_gate.cu``.
 
-On the CPU each wrapper runs its plain version below
-(``norm_shift_reference``, ``sgu_mix_gate_reference``).
+Both are differentiable (``torch.autograd.Function``): the forward is
+the kernel, and the backward recomputes the plain composition
+(``norm_shift_reference``, ``sgu_mix_gate_reference``) under autograd
+and returns its gradient. That is exactly what the JAX package does
+(``pallas_layers.py:239-249, 310-321``): neither layer has a Pallas
+backward, so this is the counterpart, not a fallback.
+
+On the CPU each forward runs its plain version below instead of the
+kernel.
 """
 
 from __future__ import annotations
@@ -50,11 +57,17 @@ def sgu_mix_gate_reference(x, gate, weights, biases, scale, epsilon,
     return x * g.to(x.dtype)
 
 
-def norm_shift(x, scale, epsilon, out_dtype):
-    """x: (batch, n, d); scale: (d,). Returns (batch, n, d) in
-    ``out_dtype``."""
-    if not takes_kernel(x):
-        return norm_shift_reference(x, scale, epsilon, out_dtype)
+def _reference_grads(fn, tensors, args, g):
+    """The gradient of the plain composition ``fn(*tensors, *args)``
+    against ``g``, recomputed under autograd: the backward of both
+    layers, as ``jax.vjp`` of the reference is in the JAX package."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(True) for t in tensors]
+        out = fn(*inputs, *args)
+        return torch.autograd.grad(out, inputs, g)
+
+
+def _norm_shift_kernel(x, scale, epsilon, out_dtype):
     if x.ndim != 3:
         raise ValueError(f"x must be (batch, n, d), got {tuple(x.shape)}")
     b, n, d = x.shape
@@ -78,16 +91,33 @@ def norm_shift(x, scale, epsilon, out_dtype):
     return out
 
 
+class _NormShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, epsilon, out_dtype):
+        ctx.save_for_backward(x, scale)
+        ctx.args = (epsilon, out_dtype)
+        if not takes_kernel(x):
+            return norm_shift_reference(x, scale, epsilon, out_dtype)
+        return _norm_shift_kernel(x, scale, epsilon, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = _reference_grads(norm_shift_reference, ctx.saved_tensors,
+                                 ctx.args, g)
+        return (*grads, None, None)
+
+
+def norm_shift(x, scale, epsilon, out_dtype):
+    """x: (batch, n, d); scale: (d,). Returns (batch, n, d) in
+    ``out_dtype``."""
+    return _NormShift.apply(x, scale, epsilon, out_dtype)
+
+
 norm_shift.launches = 0
 
 
-def sgu_mix_gate(x, gate, weights, biases, scale, epsilon, out_dtype):
-    """x, gate: (batch, n, d) halves of the feed-forward hidden; weights
-    (n, n) and biases (n, 1) float32; scale (d,). Returns (batch, n, d)
-    in x's dtype."""
-    if not takes_kernel(gate):
-        return sgu_mix_gate_reference(x, gate, weights, biases, scale,
-                                      epsilon, out_dtype)
+def _sgu_mix_gate_kernel(x, gate, weights, biases, scale, epsilon,
+                         out_dtype):
     if gate.ndim != 3 or x.shape != gate.shape:
         raise ValueError("x and gate must be one (batch, n, d) shape")
     b, n, d = gate.shape
@@ -112,6 +142,32 @@ def sgu_mix_gate(x, gate, weights, biases, scale, epsilon, out_dtype):
     )
     sgu_mix_gate.launches += 1
     return out
+
+
+class _SguMixGate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gate, weights, biases, scale, epsilon, out_dtype):
+        ctx.save_for_backward(x, gate, weights, biases, scale)
+        ctx.args = (epsilon, out_dtype)
+        if not takes_kernel(gate):
+            return sgu_mix_gate_reference(x, gate, weights, biases, scale,
+                                          epsilon, out_dtype)
+        return _sgu_mix_gate_kernel(x, gate, weights, biases, scale,
+                                    epsilon, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = _reference_grads(sgu_mix_gate_reference, ctx.saved_tensors,
+                                 ctx.args, g)
+        return (*grads, None, None)
+
+
+def sgu_mix_gate(x, gate, weights, biases, scale, epsilon, out_dtype):
+    """x, gate: (batch, n, d) halves of the feed-forward hidden; weights
+    (n, n) and biases (n, 1) float32; scale (d,). Returns (batch, n, d)
+    in x's dtype."""
+    return _SguMixGate.apply(x, gate, weights, biases, scale, epsilon,
+                             out_dtype)
 
 
 sgu_mix_gate.launches = 0

@@ -1,9 +1,11 @@
-"""EOS-masked per-sequence scoring, the inference half of the JAX
-package's ``training/loss.py``.
+"""EOS-masked per-sequence scoring and the training loss, the
+counterpart of the JAX package's ``training/loss.py``.
 
 The padding token 0 doubles as end-of-string, so the mask keeps every
 non-pad position plus the first pad position (the EOS the model must
-emit). A sequence's score is the masked mean over its kept positions.
+emit). A sequence's score is the masked mean over its kept positions;
+the training loss is that per-sequence score, which the train step
+averages over the batch (NOT a global masked mean).
 """
 
 from __future__ import annotations
@@ -40,3 +42,11 @@ def sequence_scores(logits: torch.Tensor, targets: torch.Tensor, *,
     lp = token_logprobs(logits, targets)
     mask = eos_loss_mask(targets, ignore_index)
     return masked_mean(-lp, mask, dim=-1), lp, mask
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, *,
+                  ignore_index: int = 0) -> torch.Tensor:
+    """logits (..., n, vocab), targets (..., n) -> per-sequence losses of
+    shape ``logits.shape[:-2]``: the masked mean over each sequence's
+    kept positions. Callers average over the batch."""
+    return sequence_scores(logits, targets, ignore_index=ignore_index)[0]

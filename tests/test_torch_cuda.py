@@ -12,7 +12,11 @@ Tolerances: float32 to 1e-5 absolute plus 1e-5 relative (summation
 order); bfloat16 and float16 to 1e-2 absolute plus 1e-2 relative (about
 one ulp of values near 1: the kernel and the plain version each round
 once from float32 values summed in different orders), 2e-2 for the SGU
-tail, whose product x * gate rounds twice.
+tail, whose product x * gate rounds twice. The attention backward in
+float32 to 1e-4 absolute plus 1e-4 relative: each gradient is a second
+float32 sum, over up to 2w rows or keys, of terms that themselves come
+from the softmax statistics, both taken in another order than the plain
+version takes them.
 """
 
 import pytest
@@ -25,6 +29,13 @@ pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-2),
        torch.float16: (1e-2, 1e-2)}
+BWD_TOL = {**TOL, torch.float32: (1e-4, 1e-4)}
+SHAPES = [  # (b, h, n, d, w)
+    (2, 3, 64, 16, 16), (1, 2, 96, 32, 32), (2, 2, 512, 64, 128),
+    (1, 2, 256, 128, 64), (1, 4, 1024, 64, 512), (1, 1, 300, 64, 100),
+]
+SMALL = dict(num_tokens=32, dim=64, seq_len=64, depth=3, window_size=16,
+             global_mlp_depth=1, heads=2, dim_head=16, ff_mult=2)
 
 
 @pytest.fixture
@@ -49,10 +60,7 @@ def _check(got, want, atol, rtol):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("b,h,n,d,w", [
-    (2, 3, 64, 16, 16), (1, 2, 96, 32, 32), (2, 2, 512, 64, 128),
-    (1, 2, 256, 128, 64), (1, 4, 1024, 64, 512), (1, 1, 300, 64, 100),
-])
+@pytest.mark.parametrize("b,h,n,d,w", SHAPES)
 def test_local_attention_fwd(dev, dtype, b, h, n, d, w):
     gen = torch.Generator(device=dev).manual_seed(n + d)
     q, k, v = (_randn(gen, b, h, n, d, dtype=dtype, dev=dev)
@@ -62,6 +70,76 @@ def test_local_attention_fwd(dev, dtype, b, h, n, d, w):
     assert cuda_attention.local_attention_fwd.launches == before + 1
     want = cuda_attention.local_attention_fwd_reference(q, k, v, w)
     _check(got, want, *TOL[dtype])
+
+
+@pytest.mark.parametrize("impl", ["kv", "halo"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,n,d,w", SHAPES)
+def test_local_attention_bwd(dev, impl, dtype, b, h, n, d, w):
+    gen = torch.Generator(device=dev).manual_seed(n + d + 1)
+    q, k, v, do = (_randn(gen, b, h, n, d, dtype=dtype, dev=dev)
+                   for _ in range(4))
+    fn = getattr(cuda_attention, f"local_attention_bwd_{impl}")
+    ref = getattr(cuda_attention, f"local_attention_bwd_{impl}_reference")
+    before = fn.launches
+    got = fn(q, k, v, do, w)
+    assert fn.launches == before + 1
+    want = ref(q, k, v, do, w)
+    for g, r in zip(got, want):
+        _check(g, r, *BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("impl", ["kv", "halo"])
+def test_local_attention_carries_grad_fn(dev, impl):
+    """The regression test of the repaired fault: on a CUDA tensor that
+    requires grad, the kernel's output carries a grad_fn whose backward is
+    A2 or A3, and the gradients are those of the plain forward."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v, do = (_randn(gen, 2, 2, 64, 16, dtype=torch.float32, dev=dev)
+                   for _ in range(4))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    bwd = getattr(cuda_attention, f"local_attention_bwd_{impl}")
+    before = bwd.launches
+    out = cuda_attention.local_attention(*leaves, 16, bwd_impl=impl)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, do)
+    assert bwd.launches == before + 1
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(
+        cuda_attention.local_attention_fwd_reference(*plain, 16), plain, do)
+    for g, r in zip(got, want):
+        _check(g, r, *BWD_TOL[torch.float32])
+
+
+def test_layers_carry_grad_fn(dev):
+    """norm_shift and sgu_mix_gate are differentiable on the card; their
+    backward is the autograd of the plain composition."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = _randn(gen, 2, 32, 48, dtype=torch.float32, dev=dev) * 2 + 0.5
+    scale = torch.rand(48, generator=gen, device=dev) + 0.5
+    g = _randn(gen, 2, 32, 48, dtype=torch.float32, dev=dev)
+    pairs = [
+        (cuda_layers.norm_shift, cuda_layers.norm_shift_reference,
+         (x, scale), (1e-5, torch.float32)),
+    ]
+    xs, gate = (_randn(gen, 2, 32, 24, dtype=torch.float32, dev=dev)
+                for _ in range(2))
+    w = _randn(gen, 32, 32, dtype=torch.float32, dev=dev) / 32 ** 0.5
+    bias = _randn(gen, 32, 1, dtype=torch.float32, dev=dev)
+    s2 = torch.rand(24, generator=gen, device=dev) + 0.5
+    pairs.append((cuda_layers.sgu_mix_gate,
+                  cuda_layers.sgu_mix_gate_reference,
+                  (xs, gate, w, bias, s2), (1e-5, torch.float32)))
+    for fn, ref, tensors, args in pairs:
+        a = [t.clone().requires_grad_(True) for t in tensors]
+        out = fn(*a, *args)
+        assert out.grad_fn is not None
+        cot = g if out.shape == g.shape else torch.ones_like(out)
+        got = torch.autograd.grad(out, a, cot)
+        r = [t.clone().requires_grad_(True) for t in tensors]
+        want = torch.autograd.grad(ref(*r, *args), r, cot)
+        for gg, ww in zip(got, want):
+            _check(gg, ww, *BWD_TOL[torch.float32])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -112,8 +190,7 @@ def test_model_forward_goes_through_kernels(dev, monkeypatch):
             cuda_layers.norm_shift.launches - counts[1],
             cuda_layers.sgu_mix_gate.launches - counts[2]) == (3, 6, 1)
     # the same model with each kernel's plain version in its place
-    monkeypatch.setattr(layers, "local_attention_fwd",
-                        cuda_attention.local_attention_fwd_reference)
+    monkeypatch.setattr(layers, "local_attention", _plain_attention)
     monkeypatch.setattr(layers, "norm_shift",
                         cuda_layers.norm_shift_reference)
     monkeypatch.setattr(layers, "sgu_mix_gate",
@@ -123,10 +200,61 @@ def test_model_forward_goes_through_kernels(dev, monkeypatch):
     torch.testing.assert_close(got, want, atol=0.1, rtol=0)
 
 
+def _plain_attention(q, k, v, window_size, scale=None, bwd_impl="kv"):
+    return cuda_attention.local_attention_fwd_reference(q, k, v,
+                                                        window_size, scale)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_model_backward_goes_through_kernels(dev, monkeypatch, remat):
+    """One ProGen backward on the card launches A2 once per layer, gives a
+    non-zero gradient on every parameter, and agrees with the same
+    model's gradients on the plain path (float32, to 1e-3 of each
+    tensor's largest gradient: three layers of float32 sums in another
+    order)."""
+    from progen_tpu_torch import ProGen, ProGenConfig
+
+    cfg = ProGenConfig(dtype="float32", remat=remat, **SMALL)
+    model = ProGen(cfg, device="cuda", seed=0)
+    toks = torch.randint(0, 32, (2, 64), device=dev)
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        model(toks).logsumexp(-1).mean().backward()
+        return {n: p.grad.clone() for n, p in model.named_parameters()}
+
+    bwd = cuda_attention.local_attention_bwd_kv
+    fwd = cuda_attention.local_attention_fwd
+    before = (bwd.launches, fwd.launches)
+    got = grads()
+    assert bwd.launches - before[0] == cfg.depth
+    assert fwd.launches - before[1] == cfg.depth * (2 if remat else 1)
+    for name, g in got.items():
+        assert bool(torch.isfinite(g).all()) and bool(g.abs().sum() > 0), \
+            name
+    monkeypatch.setattr(layers, "local_attention", _plain_attention)
+    monkeypatch.setattr(layers, "norm_shift",
+                        cuda_layers.norm_shift_reference)
+    monkeypatch.setattr(layers, "sgu_mix_gate",
+                        cuda_layers.sgu_mix_gate_reference)
+    want = grads()
+    for name in got:
+        scale = want[name].abs().max().item()
+        torch.testing.assert_close(got[name], want[name],
+                                   atol=1e-3 * scale + 1e-7, rtol=0,
+                                   msg=name)
+
+
 def test_bad_inputs_raise(dev):
     q = torch.zeros(1, 1, 64, 48, device=dev)
     with pytest.raises(ValueError):
         cuda_attention.local_attention_fwd(q, q, q, 16)  # dim_head 48
+    with pytest.raises(ValueError):
+        cuda_attention.local_attention_bwd_kv(q, q, q, q, 16)
+    with pytest.raises(ValueError):
+        cuda_attention.local_attention_bwd_halo(q, q, q, q, 16)
+    with pytest.raises(ValueError, match="bwd_impl"):
+        cuda_attention.local_attention(q, q, q, 16, bwd_impl="kv_g2")
     x = torch.zeros(1, 8, 4096, device=dev)
     with pytest.raises(ValueError):
         cuda_layers.norm_shift(x, torch.ones(4096, device=dev), 1e-5,

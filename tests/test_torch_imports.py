@@ -46,6 +46,7 @@ def test_package_has_the_slice_modules():
                 "ops.rotary", "ops.shift", "ops.attention", "ops.sgu",
                 "ops.cuda_layers", "ops.cuda_attention", "ops._build",
                 "models.layers", "models.progen", "training.loss",
+                "training.optimizer", "training.state", "training.step",
                 "workloads.scoring"):
         assert f"progen_tpu_torch.{mod}" in names
 

@@ -5,13 +5,20 @@ dispatch rules.
 A1 ``local_attention_fwd`` vs ``pallas_local_attention`` (forward
 ``_fwd_kernel``), L1 ``norm_shift`` vs ``fused_norm_shift``, L2
 ``sgu_mix_gate`` vs ``fused_sgu_mix_gate``, each in float32 and bfloat16.
+The gradients: A2 ``local_attention_bwd_kv_reference`` and A3
+``local_attention_bwd_halo_reference`` vs ``jax.vjp`` of
+``pallas_local_attention`` with ``bwd_impl="kv"`` / ``"halo"`` (bodies
+``_bwd_kv_kernel_batched`` and ``_bwd_kernel``), and L1's and L2's
+``autograd.Function``s vs ``jax.vjp`` of the fused layers.
 Tolerances: float32 to 1e-5 (summation order); bfloat16 to 2^-7
 relative plus 2^-7 absolute (two bfloat16 ulps of values near 1: each
-side rounds once from float32 sums taken in different orders). The
-CUDA kernels themselves are held against these plain versions on the
-card (tests/test_torch_cuda.py, chip_smoke.py).
+side rounds once from float32 sums taken in different orders), the
+gradients too. The CUDA kernels themselves are
+held against these plain versions on the card (tests/test_torch_cuda.py,
+chip_smoke.py).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,6 +34,8 @@ DTYPES = {"float32": (jnp.float32, torch.float32),
 TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
        "bfloat16": dict(atol=2 ** -7, rtol=2 ** -7)}
 EPS = 1e-5
+WRAPPERS = ("local_attention_fwd", "local_attention_bwd_kv",
+            "local_attention_bwd_halo")
 
 
 def _pair(a, dtype):
@@ -39,16 +48,17 @@ def _close(j, t, dtype):
         t.float().numpy(), np.asarray(j.astype(jnp.float32)), **TOL[dtype])
 
 
+def _counts():
+    return tuple(getattr(cuda_attention, n).launches for n in WRAPPERS) + (
+        cuda_layers.norm_shift.launches, cuda_layers.sgu_mix_gate.launches)
+
+
 @pytest.fixture(autouse=True)
 def _counts_stay_zero():
     """On the CPU no wrapper launches a kernel, so no count moves."""
-    before = (cuda_attention.local_attention_fwd.launches,
-              cuda_layers.norm_shift.launches,
-              cuda_layers.sgu_mix_gate.launches)
+    before = _counts()
     yield
-    assert (cuda_attention.local_attention_fwd.launches,
-            cuda_layers.norm_shift.launches,
-            cuda_layers.sgu_mix_gate.launches) == before
+    assert _counts() == before
 
 
 class TestLocalAttentionFwd:
@@ -90,6 +100,160 @@ class TestLocalAttentionFwd:
                                                  v.float(), 16)
         assert not torch.equal(a, b)
         assert (a.float() - ref).abs().mean() <= (b.float() - ref).abs().mean()
+
+
+def _attention_inputs(dtype, window, seed=20):
+    rng = np.random.default_rng(seed + window)
+    arrays = [rng.standard_normal((2, 2, 32, 16), np.float32)
+              for _ in range(4)]
+    return [_pair(a, dtype) for a in arrays]  # q, k, v, dO
+
+
+class TestLocalAttentionBwd:
+    @pytest.mark.parametrize("impl", ["kv", "halo"])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("window", [8, 16])
+    def test_matches_pallas_backward(self, impl, dtype, window):
+        (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = _attention_inputs(
+            dtype, window)
+        _, vjp = jax.vjp(
+            lambda q, k, v: pallas_local_attention(q, k, v, window, None,
+                                                   True, impl, 1, "pallas"),
+            jq, jk, jv)
+        want = vjp(jdo)
+        ref = getattr(cuda_attention,
+                      f"local_attention_bwd_{impl}_reference")
+        got = ref(tq, tk, tv, tdo, window)
+        for j, t, like in zip(want, got, (tq, tk, tv)):
+            assert t.dtype == like.dtype and t.shape == like.shape
+            _close(j, t, dtype)
+
+    @pytest.mark.parametrize("window", [8, 16])
+    def test_kv_halo_and_autograd_agree(self, window):
+        """The two plain backwards, the autograd of the plain forward and
+        the differentiable op all give one gradient (float32)."""
+        (_, q), (_, k), (_, v), (_, do) = _attention_inputs("float32",
+                                                            window, 21)
+        kv = cuda_attention.local_attention_bwd_kv_reference(q, k, v, do,
+                                                             window)
+        halo = cuda_attention.local_attention_bwd_halo_reference(q, k, v, do,
+                                                                 window)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        auto = torch.autograd.grad(
+            cuda_attention.local_attention_fwd_reference(*leaves, window),
+            leaves, do)
+        for impl, want in (("kv", kv), ("halo", halo)):
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            out = cuda_attention.local_attention(*leaves, window,
+                                                 bwd_impl=impl)
+            got = torch.autograd.grad(out, leaves, do)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+        for a, b, c in zip(kv, halo, auto):
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+            torch.testing.assert_close(a, c, atol=1e-5, rtol=1e-5)
+
+    def test_phantom_key_gradients_do_not_leak(self):
+        """Window 0's phantom keys get a non-zero gradient in the halo
+        scratch (their probability is not 0); the combine drops it, and
+        the kv structure never forms it: window 0's dk and dv are the same
+        with and without a phantom-key gradient in the scratch."""
+        (_, q), (_, k), (_, v), (_, do) = _attention_inputs("float32", 8, 22)
+        w, nw = 8, 4
+        d2 = torch.randn(2, 2, nw, 2 * w, 16,
+                         generator=torch.Generator().manual_seed(0))
+        combined = cuda_attention._halo_combine(d2, w)
+        poked = d2.clone()
+        poked[:, :, 0, :w] += 100.0
+        assert torch.equal(cuda_attention._halo_combine(poked, w), combined)
+        torch.testing.assert_close(combined[:, :, :w],
+                                   d2[:, :, 0, w:] + d2[:, :, 1, :w])
+        torch.testing.assert_close(combined[:, :, -w:], d2[:, :, -1, w:])
+        # the phantom keys' own gradient, which the combine drops
+        qw = q.reshape(2, 2, nw, w, 16)[:, :, 0]
+        k2 = torch.cat((torch.zeros_like(qw), k[:, :, :w]), dim=2)
+        p = cuda_attention._softmax_rows(qw, k2, w, 16 ** -0.5)
+        dv_phantom = cuda_attention._t_product(p, do[:, :, :w])[:, :, :w]
+        assert float(dv_phantom.abs().sum()) > 1.0
+        dq, dk, dv = cuda_attention.local_attention_bwd_kv_reference(
+            q, k, v, do, w)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        auto = torch.autograd.grad(
+            cuda_attention.local_attention_fwd_reference(*leaves, w),
+            leaves, do)
+        for g, a in zip((dq, dk, dv), auto):
+            torch.testing.assert_close(g[:, :, :w], a[:, :, :w], atol=1e-5,
+                                       rtol=1e-5)
+
+    @pytest.mark.parametrize("bad", ["kv_g2", "xla", "KV"])
+    def test_unknown_bwd_impl_raises_at_the_call(self, bad):
+        q = torch.zeros(1, 1, 16, 16)
+        with pytest.raises(ValueError, match="bwd_impl"):
+            cuda_attention.local_attention(q, q, q, 8, bwd_impl=bad)
+
+
+class TestLayerGradients:
+    """L1's and L2's backward: autograd of the plain composition through
+    their autograd.Functions, against jax.vjp of the fused layers (whose
+    backward differentiates the same composition)."""
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_norm_shift_grads_match_jax(self, dtype):
+        rng = np.random.default_rng(23)
+        x = (rng.standard_normal((2, 32, 33)) * 2 + 0.5).astype(np.float32)
+        scale = rng.uniform(0.5, 1.5, 33).astype(np.float32)
+        g = rng.standard_normal((2, 32, 33)).astype(np.float32)
+        (jx, tx), (jg, tg) = _pair(x, dtype), _pair(g, dtype)
+        jd, td = DTYPES[dtype]
+        _, vjp = jax.vjp(
+            lambda a, s: fused_norm_shift(a, s, EPS, 16, True,
+                                          jnp.dtype(jd).name),
+            jx, jnp.asarray(scale))
+        want = vjp(jg)
+        leaves = [tx.clone().requires_grad_(True),
+                  torch.from_numpy(scale).requires_grad_(True)]
+        out = cuda_layers.norm_shift(*leaves, EPS, td)
+        assert out.grad_fn is not None
+        got = torch.autograd.grad(out, leaves, tg)
+        _close(want[0], got[0], dtype)
+        # the scale's gradient sums 64 rows: relative to its size
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                                   rtol=TOL[dtype]["rtol"],
+                                   atol=TOL[dtype]["atol"] * 8)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_sgu_mix_gate_grads_match_jax(self, dtype):
+        rng = np.random.default_rng(24)
+        x, gate, g = (rng.standard_normal((2, 32, 24), np.float32)
+                      for _ in range(3))
+        w = (rng.standard_normal((32, 32)) / np.sqrt(32)).astype(np.float32)
+        b = rng.standard_normal((32, 1)).astype(np.float32)
+        scale = rng.uniform(0.5, 1.5, 24).astype(np.float32)
+        (jx, tx), (jgate, tgate), (jg, tg) = (_pair(a, dtype)
+                                             for a in (x, gate, g))
+        jd, td = DTYPES[dtype]
+        _, vjp = jax.vjp(
+            lambda *a: fused_sgu_mix_gate(*a, EPS, 16, True,
+                                          jnp.dtype(jd).name),
+            jx, jgate, jnp.asarray(w), jnp.asarray(b), jnp.asarray(scale))
+        want = vjp(jg)
+        leaves = [t.clone().requires_grad_(True) for t in
+                  (tx, tgate, torch.from_numpy(w), torch.from_numpy(b),
+                   torch.from_numpy(scale))]
+        out = cuda_layers.sgu_mix_gate(*leaves, EPS, td)
+        assert out.grad_fn is not None
+        got = torch.autograd.grad(out, leaves, tg)
+        names = ("x", "gate", "W", "b", "scale")
+        for j, t, leaf, name in zip(want, got, leaves, names):
+            assert t.dtype == leaf.dtype
+            ref = np.asarray(j.astype(jnp.float32))
+            # W, b and scale sum over batch and channels: their tolerance
+            # is relative to the largest gradient of the tensor
+            atol = TOL[dtype]["atol"] * (1 if name in ("x", "gate")
+                                         else max(1.0, np.abs(ref).max()))
+            np.testing.assert_allclose(t.float().numpy(), ref,
+                                       rtol=TOL[dtype]["rtol"], atol=atol,
+                                       err_msg=name)
 
 
 class TestNormShift:
@@ -169,7 +333,9 @@ class TestDispatch:
 
         for name in _build.KERNELS:
             assert (_build.CSRC / f"{name}.cu").is_file()
-        assert _build.KERNELS == ("local_attention_fwd", "norm_shift",
+        assert _build.KERNELS == ("local_attention_bwd_halo",
+                                  "local_attention_bwd_kv",
+                                  "local_attention_fwd", "norm_shift",
                                   "sgu_mix_gate")
 
     def test_library_name_follows_sources(self, tmp_path, monkeypatch):
