@@ -40,7 +40,36 @@ Phases, one line each:
      copy of the state, with the attention backward switched to A3
      ("halo"), counted on its own (A3 96, A2 0), whose gradients must
      agree with the A2 step's; then one plain A2 step, profiled by kernel
-     group.
+     group;
+  7. seqpar, the sequence-parallel train path at configs/model/long8k.toml
+     (dim 512, depth 12, heads 8, window 512, seq_len 8192, 2 gMLP
+     layers, remat on, ~184M parameters; nothing cut): first one process
+     runs 3 steps of make_train_step on the whole sequence (A1/A2) on a
+     (2, 2, 8193) batch of unpadded random tokens, and a float32 model
+     the same 3 steps from the same state; then 2 ranks, spawned here,
+     share the card over gloo (grid data 1 x seq 2) and run the same 3
+     steps of make_train_step(grid) from the same state, in bfloat16 and
+     then in float32, each on its 4096 positions of every row, through
+     A4 (the attention with its neighbour's halo), L1 with the halo row
+     and L2 for its rows. With each rank's counts set to 0 just before
+     and read just after, each bfloat16 step must launch A4 48 (forward,
+     remat doubles it) and 24 (kv backward), L1 96 and L2 8 times on
+     each rank; one more first step on a copy of the state, with the
+     attention backward switched to A4's q-centric ("halo") form, must
+     launch it 24 times and agree with the kv step's gradients as A3 does
+     with A2's in phase 6. Their losses, the first step's gradients and the
+     parameters after the 3 steps are held against the single
+     process's, float32 against float32 and bfloat16 against bfloat16
+     (the rule by SEQPAR_*).
+     Two ranks share one card here (NCCL puts one rank on a card), so
+     their step time is a record of the path, not a scaling number.
+
+Phase 2 also holds A4 (forward and both backwards, with a halo) against
+its plain versions at long8k's shard shapes with 2 shards, and runs the
+shard identity: the 8192-token sequence cut in two, each shard with its
+halo sliced from the other, through A4 equals A1 and A2/A3 on the whole
+sequence (output and dq bit for bit; dk and dv to A2's tolerance once
+shard 1's halo gradient is added to shard 0's last window).
 
 Plain-path comparisons run with TF32 off for matrix products and
 convolutions (torch.backends.cuda.matmul.allow_tf32 and
@@ -48,8 +77,8 @@ torch.backends.cudnn.allow_tf32 are set False). Any failure exits
 non-zero. The line before the last holds the card's name and power limit,
 the one before it the kernel table as JSON; the last line is the result.
 The full results (every kernel row, the main path's checks, profiles of
-one forward and one train step by kernel group, the nvcc logs) go to
-``--details`` as JSON, by default build/chip_smoke.json.
+one forward and one train step by kernel group, the seqpar phase, the
+nvcc logs) go to ``--details`` as JSON, by default build/chip_smoke.json.
 """
 
 import argparse
@@ -57,6 +86,8 @@ import contextlib
 import copy
 import dataclasses
 import json
+import os
+import socket
 import subprocess
 import sys
 import time
@@ -83,6 +114,24 @@ HALO_REL, HALO_COS = 2e-2, 0.9999
 # largest logit gap allowed between the kernel and plain bfloat16 paths of
 # the base model (measured 0.136 on an H100: the two round differently)
 LOGIT_ATOL = 0.3
+# seqpar: grid data 1 x seq 2 on one card, a (2, 2, 8193) batch, 3 steps
+SEQ_SHARDS, SEQPAR_ACCUM, SEQPAR_MICRO, SEQPAR_STEPS = 2, 2, 2, 3
+SEQPAR_TIMEOUT = 600  # seconds: gloo's collectives and the ranks' join
+# seqpar against the single process, by the rule of HALO_REL: the
+# sharding may move a result by no more than a tenth of the distance that
+# bfloat16 rounding puts between the single process and a float32 model
+# taking the same 3 steps from the same state, measured in the same run.
+# Three quantities: every step's loss (relative), the first step's
+# gradients and the parameters' change over the 3 steps (largest relative
+# distance over the tensors). The rule is held in float32, where the
+# sharding is the only difference (ranks in float32 against the float32
+# single process); in bfloat16 each rank rounds its partial sums (a
+# weight's gradient over its half of the tokens) where one process rounds
+# the whole sum once, so there the sharded step may be no further from
+# the single process than bfloat16 rounding is from float32 (a share of
+# 1), and the first step's gradients keep a cosine of at least
+# SEQPAR_COS in every tensor
+SEQPAR_SHARE_F32, SEQPAR_SHARE_BF16, SEQPAR_COS = 0.1, 1.0, 0.9999
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
             torch.float32: 67e12}  # dense tensor-core / float32 FMA rates
@@ -173,12 +222,21 @@ def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
             "operations")
 
 
-def visible_pairs(n: int, w: int) -> int:
+def visible_pairs(n: int, w: int, halo: bool = False) -> int:
     """(query, key) pairs of one head's local attention that a query
     sees: its own window up to itself, and the whole previous window.
     Window 0's phantom zero keys are left out: they add nothing to any
-    product."""
-    return sum((w if r >= w else 0) + (r % w) + 1 for r in range(n))
+    product. With a halo (A4), window 0's previous window is real."""
+    return sum((w if r >= w or halo else 0) + (r % w) + 1 for r in range(n))
+
+
+def window_mask(n: int, w: int, dev) -> torch.Tensor:
+    """(n, w + n) boolean mask of the local attention over keys [w
+    previous | n own]: query i sees key j (j from -w) when j <= i and j
+    lies in i's window or the one before."""
+    i = torch.arange(n, device=dev)[:, None]
+    j = torch.arange(n + w, device=dev)[None, :]  # j + w
+    return (j - w <= i) & (i // w - j // w <= 0)
 
 
 def phase_build():
@@ -193,7 +251,7 @@ def phase_build():
     return {name: _build.build_log(name) for name in libs}
 
 
-def phase_kernels(cfg, card: str) -> list:
+def phase_kernels(cfg, cfg8k, card: str) -> list:
     """Each kernel against its plain version at the base shapes. Each
     line gives the launches one forward must make (``per_forward``); the
     counts the main path made are in the ``kernels`` table."""
@@ -291,14 +349,17 @@ def phase_kernels(cfg, card: str) -> list:
     del x, gate, got, want
 
     rows += backward_rows(cfg, gen)
+    rows += halo_rows(cfg8k, gen)
     fwd, step = per_forward(cfg), per_step(cfg)
+    sp = seqpar_per_step(cfg8k)
     for r in rows:
         line(f"kernel {r['id']}", **{k: r[k] for k in (
             "name", "shape", "max_abs_err", "max_rel_err", "atol", "rtol",
             "worst_over_tolerance", "ms", "plain_ms", "library_ms",
             "bound_ms", "bound_by")},
             launches_per_forward=fwd[r["id"]],
-            launches_per_step=step[r["id"]], card=card)
+            launches_per_step=step[r["id"]],
+            seqpar_launches_per_step_and_rank=sp[r["id"]], card=card)
     line("kernels", status={r["id"]: "ok" for r in rows})
     return rows
 
@@ -363,6 +424,142 @@ def backward_rows(cfg, gen) -> list:
     return rows
 
 
+def halo_rows(cfg, gen) -> list:
+    """A4, the attention with a halo, against its plain versions at
+    long8k's shard shapes with 2 shards: q, k, v, dO (2, 8, 4096, 64) and
+    halo_k, halo_v (2, 8, 512, 64) in bfloat16, from a seed; then the
+    shard identity on the whole 8192-token sequence."""
+    import torch.nn.functional as F
+
+    from progen_tpu_torch.ops import cuda_attention as ca
+
+    dev, dt = gen.device, cfg.compute_dtype
+    b, h, d, w = SEQPAR_MICRO, cfg.heads, cfg.dim_head, cfg.window_size
+    n = cfg.seq_len // SEQ_SHARDS
+    bh, esize = b * h, torch.finfo(dt).bits // 8
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    q, k, v, do = (randn(b, h, n, d) for _ in range(4))
+    hk, hv = randn(b, h, w, d), randn(b, h, w, d)
+    # one PyTorch call computing the same function: SDPA over the keys
+    # [halo | shard] with the window mask, forward and (autograd.grad of
+    # the retained graph) backward
+    mask = window_mask(n, w, dev)
+    kp, vp = torch.cat([hk, k], 2), torch.cat([hv, v], 2)
+    lib_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, kp, vp, attn_mask=mask), iters=5)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(
+        leaves[0], torch.cat([hk, leaves[1]], 2),
+        torch.cat([hv, leaves[2]], 2), attn_mask=mask)
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                                     retain_graph=True))
+    del out, leaves, kp, vp
+    # the least work: inputs (and the halo) read once, outputs written
+    # once; the forward's two products over every visible pair, the
+    # backward's S, dP and dQ over every visible pair and dK, dV over
+    # the shard's own keys (the halo's gradient is halo_grads', outside)
+    pairs = visible_pairs(n, w, halo=True) * bh
+    own = pairs - w * w * bh
+    halo_bytes = 2 * bh * w * d * esize
+    fwd_bnd = bound_ms(4 * bh * n * d * esize + halo_bytes,
+                       2 * 2 * d * pairs, dt)
+    bwd_bnd = bound_ms(7 * bh * n * d * esize + halo_bytes,
+                       2 * d * (3 * pairs + 2 * own), dt)
+    common = dict(route="cuda",
+                  replaces="progen_tpu/ops/pallas_attention.py:731",
+                  shape=[b, h, n, d], halo=[b, h, w, d], window=w)
+
+    got = ca.local_attention_halo_fwd(q, k, v, hk, hv, w)
+    want = ca.local_attention_halo_fwd_reference(q, k, v, hk, hv, w)
+    err = check_close("A4 forward", got, want, 1e-2, 1e-2)
+    rows = [dict(
+        name="local_attention_halo_fwd", id="A4-fwd",
+        source="progen_tpu_torch/csrc/local_attention_fwd.cu",
+        ms=time_ms(lambda: ca.local_attention_halo_fwd(q, k, v, hk, hv, w)),
+        plain_ms=time_ms(lambda: ca.local_attention_halo_fwd_reference(
+            q, k, v, hk, hv, w), iters=3),
+        library_ms=lib_fwd_ms, bound_ms=fwd_bnd[0], bound_by=fwd_bnd[1],
+        **common, **err)]
+    del got, want
+    for rid, impl in (("A4-kv", "kv"), ("A4-halo", "halo")):
+        fn = getattr(ca, f"local_attention_halo_bwd_{impl}")
+        ref = getattr(ca, f"local_attention_halo_bwd_{impl}_reference")
+        got = fn(q, k, v, hk, hv, do, w)
+        want = ref(q, k, v, hk, hv, do, w)
+        errs = [check_close(f"{rid} {g}", a, c, 1e-2, 1e-2)
+                for g, a, c in zip(("dq", "dk", "dv"), got, want)]
+        rows.append(dict(
+            name=f"local_attention_halo_bwd_{impl}", id=rid,
+            source=f"progen_tpu_torch/csrc/local_attention_bwd_{impl}.cu",
+            ms=time_ms(lambda: fn(q, k, v, hk, hv, do, w)),
+            plain_ms=time_ms(lambda: ref(q, k, v, hk, hv, do, w), iters=3),
+            library_ms=lib_bwd_ms, bound_ms=bwd_bnd[0],
+            bound_by=bwd_bnd[1], errors=dict(zip(("dq", "dk", "dv"), errs)),
+            **common, **max(errs, key=lambda e: e["worst_over_tolerance"])))
+        del got, want
+    ident = shard_identity(cfg, gen)
+    rows[0]["shard_identity"] = ident
+    line("shard identity", **ident)
+    return rows
+
+
+def shard_identity(cfg, gen) -> dict:
+    """The 8192-token sequence (2, 8, 8192, 64) cut in two shards, shard
+    0 with a zero halo (the reference's phantom keys) and shard 1 with
+    shard 0's last window, through A4, against A1 and A2/A3 on the whole
+    sequence: the output and dq must be bit-equal (one kernel over the
+    same keys in the same order, and zero keys of score 0 leave the
+    online softmax exactly where the phantom start puts it); dk and dv,
+    with shard 1's halo gradient (halo_grads) added to shard 0's last
+    window, within A2's tolerance (two bfloat16 roundings there, where
+    the whole sequence has one)."""
+    from progen_tpu_torch.ops import cuda_attention as ca
+
+    dev, dt = gen.device, cfg.compute_dtype
+    b, h, n, d, w = SEQPAR_MICRO, cfg.heads, cfg.seq_len, cfg.dim_head, \
+        cfg.window_size
+    q, k, v, do = (torch.randn((b, h, n, d), generator=gen,
+                               device=dev).to(dt) for _ in range(4))
+    m = n // 2
+    zeros = torch.zeros(b, h, w, d, dtype=dt, device=dev)
+    halos = [(zeros, zeros), (k[:, :, m - w:m], v[:, :, m - w:m])]
+    shards = [slice(0, m), slice(m, n)]
+    whole = ca.local_attention_fwd(q, k, v, w)
+    sharded = torch.cat([ca.local_attention_halo_fwd(
+        q[:, :, s], k[:, :, s], v[:, :, s], *hl, w)
+        for s, hl in zip(shards, halos)], 2)
+    out = dict(shape=[b, h, n, d], shards=2,
+               forward_max_abs_diff=(sharded.float() - whole.float())
+               .abs().max().item(),
+               forward_bit_equal=bool(torch.equal(sharded, whole)))
+    del sharded, whole
+    for impl in ("kv", "halo"):
+        gwhole = getattr(ca, f"local_attention_bwd_{impl}")(q, k, v, do, w)
+        bwd = getattr(ca, f"local_attention_halo_bwd_{impl}")
+        parts = [list(bwd(q[:, :, s], k[:, :, s], v[:, :, s], *hl,
+                          do[:, :, s], w))
+                 for s, hl in zip(shards, halos)]
+        dhk, dhv = ca.halo_grads(q[:, :, m:], k[:, :, m:], v[:, :, m:],
+                                 *halos[1], do[:, :, m:], w)
+        parts[0][1][:, :, -w:] += dhk
+        parts[0][2][:, :, -w:] += dhv
+        for g, a, c in zip(("dq", "dk", "dv"), zip(*parts), gwhole):
+            a = torch.cat(a, 2)
+            out[f"{impl}_{g}_max_abs_diff"] = (a.float() - c.float()).abs() \
+                .max().item()
+            out[f"{impl}_{g}_bit_equal"] = bool(torch.equal(a, c))
+            check_close(f"shard identity {impl} {g}", a, c, 1e-2, 1e-2)
+        del gwhole, parts
+    if not (out["forward_bit_equal"] and out["kv_dq_bit_equal"]
+            and out["halo_dq_bit_equal"]):
+        raise AssertionError(f"shard identity: output or dq not bit-equal "
+                             f"to the whole sequence's: {out}")
+    return out
+
+
 def collate(strings, seq_len: int) -> torch.Tensor:
     """Byte-tokenise and pad to (batch, seq_len + 1) with a BOS column."""
     from progen_tpu_torch.data.tokenizer import encode_tokens
@@ -381,6 +578,9 @@ def wrappers() -> dict:
     return {"A1": cuda_attention.local_attention_fwd,
             "A2": cuda_attention.local_attention_bwd_kv,
             "A3": cuda_attention.local_attention_bwd_halo,
+            "A4-fwd": cuda_attention.local_attention_halo_fwd,
+            "A4-kv": cuda_attention.local_attention_halo_bwd_kv,
+            "A4-halo": cuda_attention.local_attention_halo_bwd_halo,
             "L1": cuda_layers.norm_shift,
             "L2": cuda_layers.sgu_mix_gate}
 
@@ -395,19 +595,30 @@ def reset_counts() -> None:
 
 
 def per_forward(cfg) -> dict:
-    return {"A1": cfg.depth, "A2": 0, "A3": 0, "L1": 2 * cfg.depth,
-            "L2": cfg.global_mlp_depth}
+    """Launches of one forward on the whole sequence."""
+    return {"A1": cfg.depth, "A2": 0, "A3": 0, "A4-fwd": 0, "A4-kv": 0,
+            "A4-halo": 0, "L1": 2 * cfg.depth, "L2": cfg.global_mlp_depth}
 
 
-def per_step(cfg, impl: str = "kv") -> dict:
+def per_step(cfg, impl: str = "kv", accum: int = TRAIN_ACCUM) -> dict:
     """Launches of one train step: with remat each forward kernel runs in
     the forward and again in the recompute, once a micro-batch; the
     attention backward once a layer and micro-batch."""
-    fwd = {k: v * TRAIN_ACCUM * (2 if cfg.remat else 1)
+    fwd = {k: v * accum * (2 if cfg.remat else 1)
            for k, v in per_forward(cfg).items()}
-    bwd = cfg.depth * TRAIN_ACCUM
+    bwd = cfg.depth * accum
     return {**fwd, "A2": bwd if impl == "kv" else 0,
             "A3": bwd if impl == "halo" else 0}
+
+
+def seqpar_per_step(cfg) -> dict:
+    """Launches of one seqpar step on each rank: every attention is A4
+    (the halo kernels; rank 0's halo is zeros), A4's kv backward once a
+    layer and micro-batch, the forward kernels twice with remat."""
+    fwd = SEQPAR_ACCUM * (2 if cfg.remat else 1)
+    return {"A1": 0, "A2": 0, "A3": 0, "A4-fwd": cfg.depth * fwd,
+            "A4-kv": cfg.depth * SEQPAR_ACCUM, "A4-halo": 0,
+            "L1": 2 * cfg.depth * fwd, "L2": cfg.global_mlp_depth * fwd}
 
 
 def drive_main_path(cfg, model, batch, primes) -> dict:
@@ -769,6 +980,316 @@ def halo_step(cfg, state, batch) -> dict:
     return dict(out, profile=profile)
 
 
+def long8k_config():
+    from progen_tpu_torch import ProGenConfig, load_toml_config
+
+    return ProGenConfig.from_dict(load_toml_config(
+        str(REPO / "configs" / "model" / "long8k.toml")))
+
+
+def seqpar_batch(cfg) -> torch.Tensor:
+    """(2, 2, seq_len + 1) random tokens 1..255 from a numpy seed: no pad,
+    so every position counts in the loss and every window's rows get a
+    gradient."""
+    rng = np.random.default_rng(0)
+    return torch.from_numpy(rng.integers(
+        1, cfg.num_tokens, (SEQPAR_ACCUM, SEQPAR_MICRO, cfg.seq_len + 1)))
+
+
+def timed_steps(step, state, batch) -> dict:
+    """SEQPAR_STEPS steps of ``step`` with every launch count set to 0
+    just before: each step's CUDA-event time, metrics and launches; the
+    first step's gradients (as the optimizer gets them) and the peak
+    device memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    steps, grads = [], None
+    for i in range(SEQPAR_STEPS):
+        before = launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        if i == 0:
+            grads, m = step_grads(step, state, batch)
+        else:
+            _, m = step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        after = launch_counts()
+        steps.append(dict(ms=start.elapsed_time(end),
+                          launches={k: after[k] - before[k] for k in after},
+                          **{k: v.item() for k, v in m.items()}))
+    warm = [st["ms"] for st in steps[1:]]
+    return dict(grads=grads, steps=steps, launches=launch_counts(),
+                step_ms=sum(warm) / len(warm),
+                peak_memory_bytes=torch.cuda.max_memory_allocated())
+
+
+def time_all_reduce(cfg, grid) -> float:
+    """Host time of the train step's one bucketed gradient all_reduce
+    (every parameter's shape, float32) over gloo, on the card, mean of 3
+    after one warm-up."""
+    from progen_tpu_torch import ProGen
+    from progen_tpu_torch.parallel.collectives import all_reduce_
+
+    grads = [torch.zeros_like(p) for p in
+             ProGen(cfg, device="cuda", seed=None).parameters()]
+    all_reduce_(grads, grid.world_group)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(3):
+        all_reduce_(grads, grid.world_group)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / 3 * 1e3
+
+
+def seqpar_rank(rank: int, port: int, out_dir: str) -> None:
+    """One of the SEQ_SHARDS ranks of phase 7, spawned: joins the gloo
+    group and runs the 3 steps of make_train_step(grid) on its shard, in
+    bfloat16 (the path, counted) and then in float32 from the same
+    state; before them, the first bfloat16 step once more on a copy of
+    the state with A4's q-centric ("halo") backward, counted on its own
+    and held against the kv step's gradients (HALO_REL, HALO_COS). Writes
+    its records, and rank 0 also the gradients of the first step and the
+    parameters after the third."""
+    import hashlib
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(SEQ_SHARDS),
+                      GLOO_SOCKET_IFNAME="lo")
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from progen_tpu_torch.models import layers
+    from progen_tpu_torch.parallel import init_grid
+    from progen_tpu_torch.training.step import (
+        init_train_state,
+        make_train_step,
+    )
+
+    grid = init_grid(1, SEQ_SHARDS, "gloo", timeout=SEQPAR_TIMEOUT)
+    cfg = long8k_config()
+    batch = seqpar_batch(cfg).cuda()
+    records = {"gradient_all_reduce_ms": time_all_reduce(cfg, grid)}
+    for name, c in (("bf16", cfg),
+                    ("f32", dataclasses.replace(cfg, dtype="float32"))):
+        state = init_train_state(c, device="cuda", seed=0, grid=grid)
+        if name == "bf16":
+            # A4's q-centric backward: the first step on a copy of the
+            # state with the attention backward switched to "halo",
+            # counted on its own
+            reset_counts()
+            with mock.patch.object(layers, "ATTN_BWD_IMPL", "halo"):
+                halo_grads, _ = step_grads(make_train_step(grid),
+                                           copy.deepcopy(state), batch)
+                torch.cuda.synchronize()
+            halo_counts = launch_counts()
+        run = timed_steps(make_train_step(grid), state, batch)
+        if name == "bf16":
+            stats = [(*rel_cos(halo_grads[n], run["grads"][n]), n)
+                     for n in halo_grads]
+            records["halo_step"] = dict(
+                launches=halo_counts, max_rel=max(stats)[0],
+                max_rel_tensor=max(stats)[2],
+                min_cos=min(stats, key=lambda x: x[1])[1])
+            del halo_grads
+        params = {n: p.detach()
+                  for n, p in state.model.named_parameters()}
+        digest = hashlib.sha256()
+        for p in params.values():
+            digest.update(p.cpu().numpy().tobytes())
+        if rank == 0:
+            torch.save({"grads": run["grads"], "params": params},
+                       Path(out_dir) / f"rank0_{name}.pt")
+        records[name] = dict({k: v for k, v in run.items()
+                              if k != "grads"},
+                             params_sha256=digest.hexdigest())
+        del state, run, params
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(dict(
+        records, rank=rank, seq_index=grid.seq_index)))
+    torch.distributed.destroy_process_group()
+
+
+def spawn_seqpar(out_dir: Path) -> list:
+    """Start the ranks, wait for them within SEQPAR_TIMEOUT, kill any
+    left; fail unless every rank exited 0. Their records, in rank
+    order."""
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=seqpar_rank, args=(r, port, str(out_dir)))
+             for r in range(SEQ_SHARDS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SEQPAR_TIMEOUT
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise AssertionError(f"seqpar ranks exited {codes}")
+    return [json.loads((out_dir / f"rank{r}.json").read_text())
+            for r in range(SEQ_SHARDS)]
+
+
+def max_rel(got: dict, want: dict) -> tuple:
+    """(largest per-tensor relative distance, its tensor, smallest
+    cosine, its tensor) of ``got`` against ``want``."""
+    stats = [(*rel_cos(got[n], want[n]), n) for n in want]
+    rel = max(stats)
+    cos = min(stats, key=lambda x: x[1])
+    return rel[0], rel[2], cos[1], cos[2]
+
+
+def phase_seqpar(cfg, card: str) -> dict:
+    """Phase 7 (see the module docstring)."""
+    from progen_tpu_torch.training.step import (
+        init_train_state,
+        make_train_step,
+    )
+
+    torch.cuda.empty_cache()
+    batch = seqpar_batch(cfg).cuda()
+    single = {}
+    for name, c in (("bf16", cfg),
+                    ("f32", dataclasses.replace(cfg, dtype="float32"))):
+        state = init_train_state(c, device="cuda", seed=0)
+        if name == "bf16":
+            p0 = {n: p.detach().clone()
+                  for n, p in state.model.named_parameters()}
+        single[name] = timed_steps(make_train_step(), state, batch)
+        single[name]["params"] = {n: p.detach() for n, p in
+                                  state.model.named_parameters()}
+        del state
+
+    out_dir = REPO / "build" / "seqpar"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for f in out_dir.iterdir():
+        f.unlink()
+    t = time.perf_counter()
+    ranks = spawn_seqpar(out_dir)
+    ranks_s = time.perf_counter() - t
+
+    def delta(params):
+        return {n: params[n] - p0[n] for n in p0}
+
+    def loss_rel(a, b):
+        return max(abs(x["loss"] - y["loss"]) / abs(y["loss"])
+                   for x, y in zip(a, b))
+
+    # the bfloat16 single process's own distance from float32
+    own = dict(loss=loss_rel(single["bf16"]["steps"],
+                             single["f32"]["steps"]),
+               grads=max_rel(single["bf16"]["grads"],
+                             single["f32"]["grads"])[0],
+               update=max_rel(delta(single["bf16"]["params"]),
+                              delta(single["f32"]["params"]))[0])
+    dist = {}
+    for name in ("bf16", "f32"):
+        got = torch.load(out_dir / f"rank0_{name}.pt", map_location="cuda")
+        dist[name] = dict(
+            loss=max(loss_rel(r[name]["steps"], single[name]["steps"])
+                     for r in ranks),
+            grads=max_rel(got["grads"], single[name]["grads"]),
+            update=max_rel(delta(got["params"]),
+                           delta(single[name]["params"])))
+        del got
+    bf = single["bf16"]
+    tokens = SEQPAR_ACCUM * SEQPAR_MICRO * cfg.seq_len
+    out = dict(
+        config="configs/model/long8k.toml", grid=[1, SEQ_SHARDS],
+        backend="gloo", batch=list(batch.shape), ranks_s=ranks_s,
+        launches_per_step_and_rank=[[st["launches"]
+                                     for st in r["bf16"]["steps"]]
+                                    for r in ranks],
+        step_ms_per_rank=[r["bf16"]["step_ms"] for r in ranks],
+        tokens_per_s=tokens / (max(r["bf16"]["step_ms"] for r in ranks)
+                               / 1e3),
+        peak_memory_bytes_per_rank=[r["bf16"]["peak_memory_bytes"]
+                                    for r in ranks],
+        gradient_all_reduce_ms_per_rank=[r["gradient_all_reduce_ms"]
+                                         for r in ranks],
+        halo_step=ranks[0]["halo_step"],
+        single_step_ms=bf["step_ms"],
+        single_tokens_per_s=tokens / (bf["step_ms"] / 1e3),
+        single_peak_memory_bytes=bf["peak_memory_bytes"],
+        single_launches=bf["launches"],
+        losses=[st["loss"] for st in ranks[0]["bf16"]["steps"]],
+        single_losses=[st["loss"] for st in bf["steps"]],
+        f32_losses=[st["loss"] for st in single["f32"]["steps"]],
+        grad_norms=[st["grad_norm"] for st in ranks[0]["bf16"]["steps"]],
+        single_grad_norms=[st["grad_norm"] for st in bf["steps"]],
+        bf16_vs_f32=own, card=card,
+        note="2 ranks share 1 card: the step time records the path, "
+             "it is not a scaling number")
+    for name in ("bf16", "f32"):
+        d = dist[name]
+        out[f"seqpar_vs_single_{name}"] = dict(
+            loss=d["loss"], grads_max_rel=d["grads"][0],
+            grads_max_rel_tensor=d["grads"][1],
+            grads_min_cos=d["grads"][2], grads_min_cos_tensor=d["grads"][3],
+            update_max_rel=d["update"][0],
+            update_max_rel_tensor=d["update"][1],
+            update_min_cos=d["update"][2],
+            replicas_equal=len({r[name]["params_sha256"]
+                                for r in ranks}) == 1)
+    line("seqpar", **out)
+    del p0, single
+    bad = []
+    want_step = seqpar_per_step(cfg)
+    want_halo = {**want_step, "A4-kv": 0, "A4-halo": want_step["A4-kv"]}
+    for r in ranks:
+        hs = r["halo_step"]
+        if hs["launches"] != want_halo:
+            bad.append(f"rank {r['rank']} halo step launched "
+                       f"{hs['launches']}, not {want_halo}")
+        if not (hs["max_rel"] <= HALO_REL and hs["min_cos"] >= HALO_COS):
+            bad.append(f"rank {r['rank']} halo step's gradients off the "
+                       f"kv step's: {hs}")
+        for i, st in enumerate(r["bf16"]["steps"]):
+            if st["launches"] != want_step:
+                bad.append(f"rank {r['rank']} step {i + 1} launched "
+                           f"{st['launches']}, not {want_step}")
+        for name in ("bf16", "f32"):
+            for i, st in enumerate(r[name]["steps"]):
+                if not (np.isfinite(st["loss"]) and st["skipped"] == 0):
+                    bad.append(f"rank {r['rank']} {name} step {i + 1}: "
+                               f"{st}")
+    want_single = {k: v * SEQPAR_STEPS for k, v in
+                   per_step(cfg, accum=SEQPAR_ACCUM).items()}
+    if bf["launches"] != want_single:
+        bad.append(f"single process launched {bf['launches']}, not "
+                   f"{want_single}")
+    for name, share in (("f32", SEQPAR_SHARE_F32),
+                        ("bf16", SEQPAR_SHARE_BF16)):
+        if not out[f"seqpar_vs_single_{name}"]["replicas_equal"]:
+            bad.append(f"the ranks' {name} parameters differ")
+        for key in ("loss", "grads", "update"):
+            d = dist[name][key] if key == "loss" else dist[name][key][0]
+            if not d <= share * own[key]:
+                bad.append(f"{name} {key}: {d} from the single process, "
+                           f"over {share} x bfloat16's {own[key]} from "
+                           f"float32")
+    if not dist["bf16"]["grads"][2] >= SEQPAR_COS:
+        bad.append(f"gradient cosine {dist['bf16']['grads'][2]} < "
+                   f"{SEQPAR_COS}")
+    if bad:
+        raise AssertionError("seqpar: " + "; ".join(bad))
+    return dict(out, launches={k: sum(r["bf16"]["launches"][k]
+                                      + r["halo_step"]["launches"][k]
+                                      for r in ranks)
+                               for k in ranks[0]["bf16"]["launches"]})
+
+
 def check_training(run: dict) -> None:
     """Phase 6c: every loss and grad norm finite, no step refused, and a
     lower loss on the repeated batch after the steps than before."""
@@ -805,7 +1326,8 @@ def main() -> int:
     logs = phase_build()
     cfg = ProGenConfig.from_dict(load_toml_config(
         str(REPO / "configs" / "model" / "base.toml")))
-    rows = phase_kernels(cfg, card)
+    cfg8k = long8k_config()
+    rows = phase_kernels(cfg, cfg8k, card)
 
     t = time.perf_counter()
     model = ProGen(cfg, device="cuda", seed=0).eval()
@@ -836,13 +1358,18 @@ def main() -> int:
     fbatch = full_batch(cfg)
     result["grad_check"] = check_gradients(cfg, state, fbatch)
     result["halo_step"] = halo_step(cfg, state, fbatch)
+    del state, fbatch
+    result["seqpar"] = phase_seqpar(cfg8k, card)
 
     # each kernel's launches, summed over the paths driven with counts:
-    # scoring + generation, the 3 train steps, the A3 step
-    counts = {k: run["launches"][k] + train["launches"][k]
-              + result["halo_step"]["launches"][k] for k in run["launches"]}
-    line("launches", inference=run["launches"], train=train["launches"],
-         halo_step=result["halo_step"]["launches"], total=counts)
+    # scoring + generation, the 3 train steps, the A3 step, and the seqpar
+    # ranks' 3 steps and A4 halo-backward step (the single-process
+    # comparison there is left out)
+    paths = dict(inference=run["launches"], train=train["launches"],
+                 halo_step=result["halo_step"]["launches"],
+                 seqpar=result["seqpar"]["launches"])
+    counts = {k: sum(c[k] for c in paths.values()) for k in run["launches"]}
+    line("launches", **paths, total=counts)
     if not all(counts.values()):
         raise AssertionError(f"a kernel was never launched: {counts}")
     table = [{

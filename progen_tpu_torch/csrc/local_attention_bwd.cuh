@@ -24,6 +24,14 @@
 // forward kernel. They add nothing to dq (k = 0) or to delta (v = 0, so
 // dp = 0).
 //
+// With a halo (A4: hk, hv of (bh, w, D), as local_attention_fwd.cu takes
+// them), window 0's previous keys are real: the row pass sweeps keys
+// -w .. a from max -inf and denominator 0, so the statistics see the halo
+// keys and dq includes them. Neither key pass forms a gradient for the
+// halo (pallas_attention.py:570-574, :704-707): that comes from one
+// recompute of window 0 outside the kernels (halo_grads in
+// ops/cuda_attention.py, _halo_grads there).
+//
 // Layout of the work: the head dim is cut into slices of DS = min(D, 32)
 // values and TPR = D / DS neighbouring threads share one row (or one key,
 // in the key passes), each holding its slice in registers; a dot product
@@ -77,16 +85,23 @@ __device__ __forceinline__ float split_dot(const float* a, const float* b) {
 }
 
 // Stage rows [r0, r0 + R) of a (n, D) slab as float32 into dst[R][D];
-// rows at or past `end` read as zero.
-template <typename T, int R, int D>
+// rows at or past `end` read as zero. With HALO, rows -w .. -1 come from
+// the (w, D) halo slab (only key rows of window 0 are ever negative).
+template <typename T, int R, int D, bool HALO = false>
 __device__ __forceinline__ void stage_rows(float (*dst)[D],
                                            const T* __restrict__ src,
-                                           int r0, int end) {
+                                           int r0, int end,
+                                           const T* __restrict__ halo =
+                                               nullptr,
+                                           int w = 0) {
   for (int idx = threadIdx.x; idx < R * D; idx += NT) {
     const int rr = idx / D;
     const int c = idx - rr * D;
     const int r = r0 + rr;
-    dst[rr][c] = r < end ? progen::to_f32(src[(size_t)r * D + c]) : 0.f;
+    if (HALO && r < 0)
+      dst[rr][c] = progen::to_f32(halo[(size_t)(r + w) * D + c]);
+    else
+      dst[rr][c] = r < end ? progen::to_f32(src[(size_t)r * D + c]) : 0.f;
   }
 }
 
@@ -94,10 +109,13 @@ __device__ __forceinline__ void stage_rows(float (*dst)[D],
 // row: sweep 1 over its visible keys takes the online softmax statistics
 // (m, l) and t = sum e * dp, so delta = t / l; sweep 2 recomputes p and
 // ds and accumulates dq. Writes dq in T and stats[row] = {m, l, delta, 0}.
-template <typename T, int D>
+// HALO: hk, hv are window 0's previous keys and values; without it they
+// are unused and window 0 sees the phantom zeros.
+template <typename T, int D, bool HALO>
 __global__ void __launch_bounds__(NT)
     rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
+                const T* __restrict__ v, const T* __restrict__ hk,
+                const T* __restrict__ hv, const T* __restrict__ dout,
                 T* __restrict__ dq, float4* __restrict__ stats, int n, int w,
                 float scale) {
   using S = Split<D>;
@@ -123,16 +141,20 @@ __global__ void __launch_bounds__(NT)
         active ? progen::to_f32(dout[base + (size_t)row * D + c0 + e]) : 0.f;
   }
 
-  const int kbeg = win > 0 ? (win - 1) * w : 0;
+  const bool phantom = !HALO && win == 0;
+  const T* hkb = HALO ? hk + (size_t)bh * w * D : nullptr;
+  const T* hvb = HALO ? hv + (size_t)bh * w * D : nullptr;
+  const int kbeg = phantom ? 0 : (win - 1) * w;
   const int kend = win * w + min(a0 + ROWS, w);  // exclusive
 
-  // sweep 1: statistics. Window 0 starts with its w phantom keys seen.
-  float m = win == 0 ? 0.f : -INFINITY;
-  float l = win == 0 ? (float)w : 0.f;
+  // sweep 1: statistics. Window 0 without a halo starts with its w
+  // phantom keys seen.
+  float m = phantom ? 0.f : -INFINITY;
+  float l = phantom ? (float)w : 0.f;
   float t = 0.f;
   for (int t0 = kbeg; t0 < kend; t0 += TK) {
-    stage_rows<T, TK, D>(ks, k + base, t0, kend);
-    stage_rows<T, TK, D>(vs, v + base, t0, kend);
+    stage_rows<T, TK, D, HALO>(ks, k + base, t0, kend, hkb, w);
+    stage_rows<T, TK, D, HALO>(vs, v + base, t0, kend, hvb, w);
     __syncthreads();
 #pragma unroll 1
     for (int j0 = 0; j0 < TK; j0 += CH) {
@@ -169,8 +191,8 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
   for (int e = 0; e < DS; ++e) acc[e] = 0.f;
   for (int t0 = kbeg; t0 < kend; t0 += TK) {
-    stage_rows<T, TK, D>(ks, k + base, t0, kend);
-    stage_rows<T, TK, D>(vs, v + base, t0, kend);
+    stage_rows<T, TK, D, HALO>(ks, k + base, t0, kend, hkb, w);
+    stage_rows<T, TK, D, HALO>(vs, v + base, t0, kend, hvb, w);
     __syncthreads();
 #pragma unroll 2
     for (int c = 0; c < TK; ++c) {

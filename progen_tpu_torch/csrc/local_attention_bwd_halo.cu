@@ -32,16 +32,24 @@
 //     accumulators in registers; the rows of window i that see the block's
 //     keys (row a sees key c when c <= a + w) stream through shared memory
 //     with their statistics, and each key recomputes p and ds row by row.
+//
+// With a halo (A4, the halo branch of pallas_local_attention_halo's
+// backward): the row pass takes window 0's previous keys from hk, hv, and
+// program 0's key pass holds the halo keys in place of the phantom zeros,
+// so its previous half of the scratch is the halo's own gradient. The
+// combine still drops it, as the TPU path does: the halo's gradient comes
+// from halo_grads (ops/cuda_attention.py), the counterpart of _halo_grads.
 #include "local_attention_bwd.cuh"
 
 namespace {
 
 using namespace progen_attn_bwd;
 
-template <typename T, int D>
+template <typename T, int D, bool HALO>
 __global__ void __launch_bounds__(NT)
     halo_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
+                const T* __restrict__ v, const T* __restrict__ hk,
+                const T* __restrict__ hv, const T* __restrict__ dout,
                 const float4* __restrict__ stats, float* __restrict__ dk2,
                 float* __restrict__ dv2, int n, int w, float scale) {
   using S = Split<D>;
@@ -61,13 +69,21 @@ __global__ void __launch_bounds__(NT)
   const bool phantom = key < 0;           // window 0's previous half
   const int c0 = sub * DS;
   const size_t base = (size_t)bh * n * D;
+  const size_t hbase = (size_t)bh * w * D;
 
   float kr[DS], vr[DS], dka[DS], dva[DS];
 #pragma unroll
   for (int e = 0; e < DS; ++e) {
-    const bool load = active && !phantom;
-    kr[e] = load ? progen::to_f32(k[base + (size_t)key * D + c0 + e]) : 0.f;
-    vr[e] = load ? progen::to_f32(v[base + (size_t)key * D + c0 + e]) : 0.f;
+    if (HALO && active && phantom) {  // the halo in place of the zeros
+      kr[e] = progen::to_f32(hk[hbase + (size_t)(key + w) * D + c0 + e]);
+      vr[e] = progen::to_f32(hv[hbase + (size_t)(key + w) * D + c0 + e]);
+    } else {
+      const bool load = active && !phantom;
+      kr[e] =
+          load ? progen::to_f32(k[base + (size_t)key * D + c0 + e]) : 0.f;
+      vr[e] =
+          load ? progen::to_f32(v[base + (size_t)key * D + c0 + e]) : 0.f;
+    }
     dka[e] = 0.f;
     dva[e] = 0.f;
   }
@@ -98,37 +114,51 @@ __global__ void __launch_bounds__(NT)
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* dout,
-           void* dq, void* dk2, void* dv2, void* stats, int bh, int n, int w,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const void* hk,
+           const void* hv, const void* dout, void* dq, void* dk2, void* dv2,
+           void* stats, int bh, int n, int w, float scale,
+           cudaStream_t stream) {
   using S = Split<D>;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
+  const T* hkt = static_cast<const T*>(hk);
+  const T* hvt = static_cast<const T*>(hv);
   const T* dt = static_cast<const T*>(dout);
   float4* st = static_cast<float4*>(stats);
+  T* dqt = static_cast<T*>(dq);
+  float* dk2t = static_cast<float*>(dk2);
+  float* dv2t = static_cast<float*>(dv2);
   const dim3 rows_grid((w + S::ROWS - 1) / S::ROWS, n / w, bh);
-  rows_kernel<T, D><<<rows_grid, NT, 0, stream>>>(qt, kt, vt, dt,
-                                                  static_cast<T*>(dq), st, n,
-                                                  w, scale);
-  const int err = (int)cudaGetLastError();
-  if (err != 0) return err;
   const dim3 halo_grid((2 * w + S::ROWS - 1) / S::ROWS, n / w, bh);
-  halo_kernel<T, D><<<halo_grid, NT, 0, stream>>>(
-      qt, kt, vt, dt, st, static_cast<float*>(dk2), static_cast<float*>(dv2),
-      n, w, scale);
+  if (hk != nullptr) {
+    rows_kernel<T, D, true><<<rows_grid, NT, 0, stream>>>(
+        qt, kt, vt, hkt, hvt, dt, dqt, st, n, w, scale);
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    halo_kernel<T, D, true><<<halo_grid, NT, 0, stream>>>(
+        qt, kt, vt, hkt, hvt, dt, st, dk2t, dv2t, n, w, scale);
+  } else {
+    rows_kernel<T, D, false><<<rows_grid, NT, 0, stream>>>(
+        qt, kt, vt, hkt, hvt, dt, dqt, st, n, w, scale);
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    halo_kernel<T, D, false><<<halo_grid, NT, 0, stream>>>(
+        qt, kt, vt, hkt, hvt, dt, st, dk2t, dv2t, n, w, scale);
+  }
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_d(const void* q, const void* k, const void* v, const void* dout,
-             void* dq, void* dk2, void* dv2, void* stats, int bh, int n,
-             int w, int d, float scale, cudaStream_t s) {
+int launch_d(const void* q, const void* k, const void* v, const void* hk,
+             const void* hv, const void* dout, void* dq, void* dk2,
+             void* dv2, void* stats, int bh, int n, int w, int d, float scale,
+             cudaStream_t s) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, dout, dq, dk2, dv2, stats, bh, n, w, scale, s);
-    case 32: return launch<T, 32>(q, k, v, dout, dq, dk2, dv2, stats, bh, n, w, scale, s);
-    case 64: return launch<T, 64>(q, k, v, dout, dq, dk2, dv2, stats, bh, n, w, scale, s);
-    case 128: return launch<T, 128>(q, k, v, dout, dq, dk2, dv2, stats, bh, n, w, scale, s);
+    case 16: return launch<T, 16>(q, k, v, hk, hv, dout, dq, dk2, dv2, stats, bh, n, w, scale, s);
+    case 32: return launch<T, 32>(q, k, v, hk, hv, dout, dq, dk2, dv2, stats, bh, n, w, scale, s);
+    case 64: return launch<T, 64>(q, k, v, hk, hv, dout, dq, dk2, dv2, stats, bh, n, w, scale, s);
+    case 128: return launch<T, 128>(q, k, v, hk, hv, dout, dq, dk2, dv2, stats, bh, n, w, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -137,17 +167,21 @@ int launch_d(const void* q, const void* k, const void* v, const void* dout,
 
 // q, k, v, dout, dq: (bh, n, d) contiguous, one dtype; dk2, dv2: float32
 // (bh, n / w, 2w, d); stats: a float32 (bh, n, 4) scratch. n % w == 0.
+// hk, hv: (bh, w, d) halo keys and values in the same dtype, both or
+// neither (nullptr: the phantom zeros).
 extern "C" int local_attention_bwd_halo(const void* q, const void* k,
-                                        const void* v, const void* dout,
+                                        const void* v, const void* hk,
+                                        const void* hv, const void* dout,
                                         void* dq, void* dk2, void* dv2,
                                         void* stats, int bh, int n, int w,
                                         int d, float scale, int dtype,
                                         void* stream) {
-  if (bh <= 0 || w <= 0 || n % w != 0 || bh > 65535 || n / w > 65535)
+  if (bh <= 0 || w <= 0 || n % w != 0 || bh > 65535 || n / w > 65535 ||
+      (hk == nullptr) != (hv == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  PROGEN_DISPATCH_DTYPE(dtype, return launch_d<T>(q, k, v, dout, dq, dk2,
-                                                  dv2, stats, bh, n, w, d,
-                                                  scale, s));
+  PROGEN_DISPATCH_DTYPE(dtype, return launch_d<T>(q, k, v, hk, hv, dout, dq,
+                                                  dk2, dv2, stats, bh, n, w,
+                                                  d, scale, s));
   return (int)cudaErrorInvalidValue;
 }

@@ -33,6 +33,14 @@
 //     with their statistics, and each key recomputes p and ds row by row.
 // Both kinds of consumer row see key c exactly when row >= key, so one
 // visibility test covers the current and the previous half.
+//
+// With a halo (A4, the kv branch of pallas_local_attention_halo's
+// backward): the row pass takes window 0's previous keys from hk, hv, so
+// the statistics and dq see them; kv_kernel is unchanged, since it forms
+// gradients only for the shard's own keys. The last window's keys also
+// feed the right neighbour's window 0: that share arrives through the
+// halo's gradient, which the caller adds (ops/cuda_attention.py,
+// parallel/collectives.py).
 #include "local_attention_bwd.cuh"
 
 namespace {
@@ -95,9 +103,10 @@ __global__ void __launch_bounds__(NT)
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* dout,
-           void* dq, void* dk, void* dv, void* stats, int bh, int n, int w,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const void* hk,
+           const void* hv, const void* dout, void* dq, void* dk, void* dv,
+           void* stats, int bh, int n, int w, float scale,
+           cudaStream_t stream) {
   using S = Split<D>;
   const dim3 grid((w + S::ROWS - 1) / S::ROWS, n / w, bh);
   const T* qt = static_cast<const T*>(q);
@@ -105,9 +114,17 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   const T* vt = static_cast<const T*>(v);
   const T* dt = static_cast<const T*>(dout);
   float4* st = static_cast<float4*>(stats);
-  rows_kernel<T, D><<<grid, NT, 0, stream>>>(qt, kt, vt, dt,
-                                             static_cast<T*>(dq), st, n, w,
-                                             scale);
+  const T* hkt = static_cast<const T*>(hk);
+  const T* hvt = static_cast<const T*>(hv);
+  T* dqt = static_cast<T*>(dq);
+  if (hk != nullptr)
+    rows_kernel<T, D, true><<<grid, NT, 0, stream>>>(qt, kt, vt, hkt, hvt,
+                                                      dt, dqt, st, n, w,
+                                                      scale);
+  else
+    rows_kernel<T, D, false><<<grid, NT, 0, stream>>>(qt, kt, vt, hkt, hvt,
+                                                       dt, dqt, st, n, w,
+                                                       scale);
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
   kv_kernel<T, D><<<grid, NT, 0, stream>>>(qt, kt, vt, dt, st,
@@ -117,14 +134,15 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 }
 
 template <typename T>
-int launch_d(const void* q, const void* k, const void* v, const void* dout,
-             void* dq, void* dk, void* dv, void* stats, int bh, int n, int w,
-             int d, float scale, cudaStream_t s) {
+int launch_d(const void* q, const void* k, const void* v, const void* hk,
+             const void* hv, const void* dout, void* dq, void* dk, void* dv,
+             void* stats, int bh, int n, int w, int d, float scale,
+             cudaStream_t s) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, dout, dq, dk, dv, stats, bh, n, w, scale, s);
-    case 32: return launch<T, 32>(q, k, v, dout, dq, dk, dv, stats, bh, n, w, scale, s);
-    case 64: return launch<T, 64>(q, k, v, dout, dq, dk, dv, stats, bh, n, w, scale, s);
-    case 128: return launch<T, 128>(q, k, v, dout, dq, dk, dv, stats, bh, n, w, scale, s);
+    case 16: return launch<T, 16>(q, k, v, hk, hv, dout, dq, dk, dv, stats, bh, n, w, scale, s);
+    case 32: return launch<T, 32>(q, k, v, hk, hv, dout, dq, dk, dv, stats, bh, n, w, scale, s);
+    case 64: return launch<T, 64>(q, k, v, hk, hv, dout, dq, dk, dv, stats, bh, n, w, scale, s);
+    case 128: return launch<T, 128>(q, k, v, hk, hv, dout, dq, dk, dv, stats, bh, n, w, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -132,18 +150,22 @@ int launch_d(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // q, k, v, dout, dq, dk, dv: (bh, n, d) contiguous, one dtype; stats: a
-// float32 (bh, n, 4) scratch. n % w == 0.
+// float32 (bh, n, 4) scratch. n % w == 0. hk, hv: (bh, w, d) halo keys
+// and values in the same dtype, both or neither (nullptr: the phantom
+// zeros).
 extern "C" int local_attention_bwd_kv(const void* q, const void* k,
-                                      const void* v, const void* dout,
+                                      const void* v, const void* hk,
+                                      const void* hv, const void* dout,
                                       void* dq, void* dk, void* dv,
                                       void* stats, int bh, int n, int w,
                                       int d, float scale, int dtype,
                                       void* stream) {
-  if (bh <= 0 || w <= 0 || n % w != 0 || bh > 65535 || n / w > 65535)
+  if (bh <= 0 || w <= 0 || n % w != 0 || bh > 65535 || n / w > 65535 ||
+      (hk == nullptr) != (hv == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  PROGEN_DISPATCH_DTYPE(dtype, return launch_d<T>(q, k, v, dout, dq, dk, dv,
-                                                  stats, bh, n, w, d, scale,
-                                                  s));
+  PROGEN_DISPATCH_DTYPE(dtype, return launch_d<T>(q, k, v, hk, hv, dout, dq,
+                                                  dk, dv, stats, bh, n, w, d,
+                                                  scale, s));
   return (int)cudaErrorInvalidValue;
 }

@@ -27,6 +27,18 @@
 // FMA units in float32 (no tensor cores), which keeps the kernel's
 // arithmetic that of the TPU kernel; this is the simple first version,
 // far from the bound.
+//
+// With a halo (A4; replaces pallas_local_attention_halo, the same TPU
+// kernel with two _halo_spec operands, pallas_attention.py:514, :549-551):
+// window 0's previous window is the (w, d) halo slab of keys and values
+// that the left neighbouring sequence shard sent, not the phantom zeros.
+// Window 0 then walks keys -w .. a (the halo at -w .. -1) and starts its
+// online softmax at max -inf and denominator 0, as every other window
+// does: the same tiles, in the same order, as the window that follows
+// window 0 on the whole sequence, so a sharded forward is bit-equal to the
+// whole one. The halo is a template flag: with hk = hv = nullptr the
+// launch takes the instantiation without one, which is the kernel as it
+// was before halos existed.
 #include "common.cuh"
 
 namespace {
@@ -35,11 +47,13 @@ constexpr int TQ = 128;  // query rows per block, one per thread
 constexpr int TK = 32;   // keys per shared-memory tile
 constexpr int CH = 8;    // keys per online-softmax rescale
 
-template <typename T, int D>
+template <typename T, int D, bool HALO>
 __global__ void __launch_bounds__(TQ)
     local_attention_fwd_kernel(const T* __restrict__ q,
                                const T* __restrict__ k,
-                               const T* __restrict__ v, T* __restrict__ o,
+                               const T* __restrict__ v,
+                               const T* __restrict__ hk,
+                               const T* __restrict__ hv, T* __restrict__ o,
                                int n, int w, float scale) {
   __shared__ __align__(16) float ks[TK][D];
   __shared__ __align__(16) float vs[TK][D];
@@ -59,11 +73,14 @@ __global__ void __launch_bounds__(TQ)
     qr[c] = active ? progen::to_f32(q[base + (size_t)row * D + c]) : 0.f;
     acc[c] = 0.f;
   }
-  // Window 0: w phantom keys of score 0 and value 0 already seen.
-  float m = win == 0 ? 0.f : -INFINITY;
-  float l = win == 0 ? (float)w : 0.f;
+  // Window 0 without a halo: w phantom keys of score 0 and value 0
+  // already seen. With a halo its previous keys are real, at -w .. -1.
+  const bool phantom = !HALO && win == 0;
+  float m = phantom ? 0.f : -INFINITY;
+  float l = phantom ? (float)w : 0.f;
+  const size_t hbase = (size_t)bh * w * D;
 
-  const int kbeg = win > 0 ? (win - 1) * w : 0;
+  const int kbeg = phantom ? 0 : (win - 1) * w;
   const int kend = win * w + min(a0 + TQ, w);  // exclusive
 
   for (int t0 = kbeg; t0 < kend; t0 += TK) {
@@ -72,7 +89,10 @@ __global__ void __launch_bounds__(TQ)
       const int c = idx - kk * D;
       const int j = t0 + kk;
       float kv = 0.f, vv = 0.f;
-      if (j < kend) {
+      if (HALO && j < 0) {  // window 0's previous keys: the halo
+        kv = progen::to_f32(hk[hbase + (size_t)(j + w) * D + c]);
+        vv = progen::to_f32(hv[hbase + (size_t)(j + w) * D + c]);
+      } else if (j < kend) {
         kv = progen::to_f32(k[base + (size_t)j * D + c]);
         vv = progen::to_f32(v[base + (size_t)j * D + c]);
       }
@@ -136,39 +156,54 @@ __global__ void __launch_bounds__(TQ)
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int n, int w, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const void* hk,
+           const void* hv, void* o, int bh, int n, int w, float scale,
+           cudaStream_t stream) {
   const dim3 grid((w + TQ - 1) / TQ, n / w, bh);
-  local_attention_fwd_kernel<T, D><<<grid, TQ, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), n, w, scale);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* hkt = static_cast<const T*>(hk);
+  const T* hvt = static_cast<const T*>(hv);
+  T* ot = static_cast<T*>(o);
+  if (hk != nullptr)
+    local_attention_fwd_kernel<T, D, true><<<grid, TQ, 0, stream>>>(
+        qt, kt, vt, hkt, hvt, ot, n, w, scale);
+  else
+    local_attention_fwd_kernel<T, D, false><<<grid, TQ, 0, stream>>>(
+        qt, kt, vt, hkt, hvt, ot, n, w, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, int bh,
-             int n, int w, int d, float scale, cudaStream_t stream) {
+int launch_d(const void* q, const void* k, const void* v, const void* hk,
+             const void* hv, void* o, int bh, int n, int w, int d,
+             float scale, cudaStream_t s) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, bh, n, w, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, bh, n, w, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, bh, n, w, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, bh, n, w, scale, stream);
+    case 16: return launch<T, 16>(q, k, v, hk, hv, o, bh, n, w, scale, s);
+    case 32: return launch<T, 32>(q, k, v, hk, hv, o, bh, n, w, scale, s);
+    case 64: return launch<T, 64>(q, k, v, hk, hv, o, bh, n, w, scale, s);
+    case 128: return launch<T, 128>(q, k, v, hk, hv, o, bh, n, w, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// q, k, v, out: (bh, n, d) contiguous, one dtype. n % w == 0.
+// q, k, v, out: (bh, n, d) contiguous, one dtype. n % w == 0. hk, hv:
+// (bh, w, d) halo keys and values in the same dtype, both or neither
+// (nullptr: window 0 sees the phantom zeros).
 extern "C" int local_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* out, int bh, int n,
+                                   const void* v, const void* hk,
+                                   const void* hv, void* out, int bh, int n,
                                    int w, int d, float scale, int dtype,
                                    void* stream) {
-  if (bh <= 0 || w <= 0 || n % w != 0 || bh > 65535 || n / w > 65535)
+  if (bh <= 0 || w <= 0 || n % w != 0 || bh > 65535 || n / w > 65535 ||
+      (hk == nullptr) != (hv == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   PROGEN_DISPATCH_DTYPE(dtype,
-                        return launch_d<T>(q, k, v, out, bh, n, w, d, scale,
-                                           s));
+                        return launch_d<T>(q, k, v, hk, hv, out, bh, n, w, d,
+                                           scale, s));
   return (int)cudaErrorInvalidValue;
 }

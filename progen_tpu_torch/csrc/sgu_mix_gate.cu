@@ -28,6 +28,15 @@
 // the structural zeros of the causal mix are skipped. Each thread keeps a
 // 4 x 4 float32 accumulator; the epilogue adds the bias, rounds, and
 // multiplies into x.
+//
+// Sequence shards: the TPU path shards the weight's output rows over the
+// seq axis (partition.py's sgu_seq_out rule). A shard computes output rows
+// [row0, row0 + rows) against the whole gate: x, out and the weights' and
+// biases' rows are the shard's, the gate and its statistics span all n
+// positions. Every output element still sums j = 0, 1, ... in the same
+// order (the zero weights above the diagonal add exact zeros), so a
+// sharded mix is bit-equal to the whole one. row0 = 0, rows = n is the
+// unsharded call.
 #include "common.cuh"
 
 namespace {
@@ -62,24 +71,29 @@ __global__ void __launch_bounds__(STATS_WARPS * 32)
   }
 }
 
-template <typename T>
+// SHARD: output rows [row0, row0 + rows); without it row0 = 0 and
+// rows = n are compile-time facts, and the kernel is the unsharded one.
+template <typename T, bool SHARD>
 __global__ void __launch_bounds__(THREADS)
     sgu_mix_kernel(const T* __restrict__ x, const T* __restrict__ gate,
                    const float* __restrict__ w,
                    const float* __restrict__ bias,
                    const float* __restrict__ scale,
                    const float2* __restrict__ stats, T* __restrict__ out,
-                   int n, int d) {
+                   int n, int shard_row0, int shard_rows, int d) {
+  const int row0 = SHARD ? shard_row0 : 0;
+  const int rows = SHARD ? shard_rows : n;
   __shared__ __align__(16) float ws[BK][BM + 4];  // W tile, transposed
   __shared__ __align__(16) float gs[BK][BN];      // normalised gate tile
 
   const int b = blockIdx.z;
-  const int m0 = blockIdx.y * BM;
+  const int m0 = blockIdx.y * BM;  // the shard's rows; row0 + m0 globally
   const int c0 = blockIdx.x * BN;
   const int tid = threadIdx.x;
   const int ty = tid / 16;  // 4 output rows each
   const int tx = tid % 16;  // 4 output channels each
-  const size_t bbase = (size_t)b * n * d;
+  const size_t bbase = (size_t)b * n * d;     // gate
+  const size_t xbase = (size_t)b * rows * d;  // x and out
   const float2* bstats = stats + (size_t)b * n;
 
   float acc[4][4];
@@ -88,7 +102,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.f;
 
-  const int kend = min(m0 + BM, n);  // j <= m < m0 + BM
+  const int kend = min(row0 + m0 + BM, n);  // j <= row0 + m < row0 + m0 + BM
   for (int k0 = 0; k0 < kend; k0 += BK) {
 #pragma unroll
     for (int r = 0; r < (BM * BK) / THREADS; ++r) {
@@ -97,7 +111,9 @@ __global__ void __launch_bounds__(THREADS)
       const int ki = e % BK;
       const int m = m0 + mi;
       const int j = k0 + ki;
-      ws[ki][mi] = (m < n && j < n && j <= m) ? w[(size_t)m * n + j] : 0.f;
+      ws[ki][mi] = (m < rows && j < n && j <= row0 + m)
+                       ? w[(size_t)m * n + j]
+                       : 0.f;
     }
 #pragma unroll
     for (int r = 0; r < (BK * BN) / THREADS; ++r) {
@@ -134,13 +150,13 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int m = m0 + ty * 4 + i;
-    if (m >= n) continue;
+    if (m >= rows) continue;
     const float bm = bias[m];
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int c = c0 + tx * 4 + jj;
       if (c >= d) continue;
-      const size_t idx = bbase + (size_t)m * d + c;
+      const size_t idx = xbase + (size_t)m * d + c;
       const float g = progen::round_to<T>(acc[i][jj] + bm);
       out[idx] = progen::from_f32<T>(progen::to_f32(x[idx]) * g);
     }
@@ -150,38 +166,49 @@ __global__ void __launch_bounds__(THREADS)
 template <typename T>
 int launch(const void* x, const void* gate, const void* w, const void* bias,
            const void* scale, void* out, void* stats, int batch, int n,
-           int d, float eps, cudaStream_t stream) {
-  const int rows = batch * n;
-  sgu_gate_stats<T><<<(rows + STATS_WARPS - 1) / STATS_WARPS,
+           int row0, int rows, int d, float eps, cudaStream_t stream) {
+  const int gate_rows = batch * n;
+  sgu_gate_stats<T><<<(gate_rows + STATS_WARPS - 1) / STATS_WARPS,
                       STATS_WARPS * 32, 0, stream>>>(
-      static_cast<const T*>(gate), static_cast<float2*>(stats), rows, d,
-      eps);
+      static_cast<const T*>(gate), static_cast<float2*>(stats), gate_rows,
+      d, eps);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  const dim3 grid((d + BN - 1) / BN, (n + BM - 1) / BM, batch);
-  sgu_mix_kernel<T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(gate),
-      static_cast<const float*>(w), static_cast<const float*>(bias),
-      static_cast<const float*>(scale), static_cast<const float2*>(stats),
-      static_cast<T*>(out), n, d);
+  const dim3 grid((d + BN - 1) / BN, (rows + BM - 1) / BM, batch);
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(gate);
+  const float* wt = static_cast<const float*>(w);
+  const float* bt = static_cast<const float*>(bias);
+  const float* st = static_cast<const float*>(scale);
+  const float2* stt = static_cast<const float2*>(stats);
+  T* ot = static_cast<T*>(out);
+  if (row0 == 0 && rows == n)
+    sgu_mix_kernel<T, false><<<grid, THREADS, 0, stream>>>(
+        xt, gt, wt, bt, st, stt, ot, n, row0, rows, d);
+  else
+    sgu_mix_kernel<T, true><<<grid, THREADS, 0, stream>>>(
+        xt, gt, wt, bt, st, stt, ot, n, row0, rows, d);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x, gate, out: (batch, n, d) contiguous, one dtype; weights (n, n),
-// biases (n,), scale (d,) float32; stats: scratch of batch * n float2.
+// gate: (batch, n, d) contiguous; x, out: (batch, rows, d), the output
+// rows [row0, row0 + rows), in the gate's dtype; weights (rows, n) and
+// biases (rows,) float32, those rows of the (n, n) and (n,) parameters;
+// scale (d,) float32; stats: scratch of batch * n float2.
 extern "C" int sgu_mix_gate(const void* x, const void* gate,
                             const void* weights, const void* biases,
                             const void* scale, void* out, void* stats,
-                            int batch, int n, int d, float eps, int dtype,
-                            void* stream) {
-  if (batch <= 0 || n <= 0 || d <= 0 || batch > 65535 ||
-      (n + BM - 1) / BM > 65535)
+                            int batch, int n, int row0, int rows, int d,
+                            float eps, int dtype, void* stream) {
+  if (batch <= 0 || n <= 0 || d <= 0 || batch > 65535 || rows <= 0 ||
+      row0 < 0 || row0 + rows > n || (rows + BM - 1) / BM > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   PROGEN_DISPATCH_DTYPE(dtype,
                         return launch<T>(x, gate, weights, biases, scale,
-                                         out, stats, batch, n, d, eps, s));
+                                         out, stats, batch, n, row0, rows, d,
+                                         eps, s));
   return (int)cudaErrorInvalidValue;
 }

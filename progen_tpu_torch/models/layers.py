@@ -13,6 +13,13 @@ CUDA kernels, on the CPU their plain versions; each wrapper is
 differentiable, and the attention backward is the kernel that
 ``ATTN_BWD_IMPL`` names. The one-token decode path runs plain PyTorch
 against an explicit per-layer cache.
+
+Sequence shards: given a process ``group`` (the seq group of
+``parallel.Grid``), a block's input is the rank's shard of each
+sequence. The token shift takes the left neighbour's last row, the
+attention its last window (``parallel/ring_attention.py``, kernel A4),
+and the SGU gathers the gate over the whole sequence and computes the
+shard's rows of the mix (the reference's ``sgu_seq_out`` rule).
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -33,6 +41,8 @@ from progen_tpu_torch.ops.cuda_layers import (
 )
 from progen_tpu_torch.ops.rotary import apply_rotary_pos_emb
 from progen_tpu_torch.ops.shift import shift_tokens
+from progen_tpu_torch.parallel.collectives import gather_seq, halo_from_left
+from progen_tpu_torch.parallel.ring_attention import ring_local_attention
 
 # The attention backward: A2 ("kv"), the JAX package's default and its
 # policy's choice at window 512 (pallas_attention.py:355-360), or A3
@@ -92,10 +102,13 @@ class FFCache:
     gate_history: torch.Tensor | None
 
 
-def _head(norm: ScaleNorm, c: ProGenConfig, x: torch.Tensor):
-    """Pre-norm + token shift of the full sequence: one fused kernel."""
+def _head(norm: ScaleNorm, c: ProGenConfig, x: torch.Tensor, group=None):
+    """Pre-norm + token shift of the full sequence, or of a sequence
+    shard whose row 0 shifts in the left neighbour's last row: one fused
+    kernel."""
     if c.shift_tokens:
-        return norm_shift(x, norm.scale, norm.epsilon, c.compute_dtype)
+        prev = None if group is None else halo_from_left(x[:, -1:], group)
+        return norm_shift(x, norm.scale, norm.epsilon, c.compute_dtype, prev)
     return norm(x, c.compute_dtype)
 
 
@@ -144,11 +157,16 @@ class LocalAttentionBlock(nn.Module):
         out = out.transpose(1, 2).reshape(b, n, self.config.inner_dim)
         return self.to_out(out, self.config.compute_dtype)
 
-    def forward(self, x, sin, cos):
+    def forward(self, x, sin, cos, group=None):
         c = self.config
-        q, k, v = self._qkv(_head(self.norm, c, x), sin, cos)
-        return self._out(local_attention(q, k, v, c.window_size,
-                                         bwd_impl=ATTN_BWD_IMPL))
+        q, k, v = self._qkv(_head(self.norm, c, x, group), sin, cos)
+        if group is None:
+            out = local_attention(q, k, v, c.window_size,
+                                  bwd_impl=ATTN_BWD_IMPL)
+        else:
+            out = ring_local_attention(q, k, v, c.window_size, group,
+                                       bwd_impl=ATTN_BWD_IMPL)
+        return self._out(out)
 
     def new_cache(self, batch: int, device) -> AttnCache:
         c = self.config
@@ -212,15 +230,22 @@ class SpatialGatingUnit(nn.Module):
         self.spatial_biases = nn.Parameter(torch.ones(n, 1))
         self.proj_out = Dense(half, dim_out)
 
-    def forward(self, h):
+    def forward(self, h, group=None):
         c = self.config
-        if h.shape[-2] != c.seq_len:
-            raise ValueError(f"SGU is bound to seq_len={c.seq_len}, got "
-                             f"sequence {h.shape[-2]}")
         x, gate = h.chunk(2, dim=-1)
-        x = sgu_mix_gate(x, gate, self.spatial_weights, self.spatial_biases,
-                         self.norm.scale, self.norm.epsilon,
-                         c.compute_dtype)
+        w, b, r0 = self.spatial_weights, self.spatial_biases, 0
+        if group is not None:  # this shard's rows against the whole gate
+            # gathered in float32, so the shards' partial gradients of the
+            # gate are summed before they are rounded to the compute dtype
+            gate = gather_seq(gate.float(), -2, group)
+            rows = x.shape[-2]
+            r0 = dist.get_rank(group) * rows
+            w, b = w[r0:r0 + rows], b[r0:r0 + rows]
+        if gate.shape[-2] != c.seq_len:
+            raise ValueError(f"SGU is bound to seq_len={c.seq_len}, got "
+                             f"sequence {gate.shape[-2]}")
+        x = sgu_mix_gate(x, gate, w, b, self.norm.scale, self.norm.epsilon,
+                         c.compute_dtype, r0)
         return self.proj_out(x, c.compute_dtype)
 
     def new_gate_history(self, batch: int, device) -> torch.Tensor:
@@ -266,10 +291,10 @@ class FeedForwardBlock(nn.Module):
             return h * F.gelu(gate, approximate="tanh")
         return F.gelu(h, approximate="tanh")
 
-    def forward(self, x):
-        h = self._activate(_head(self.norm, self.config, x))
+    def forward(self, x, group=None):
+        h = self._activate(_head(self.norm, self.config, x, group))
         if self.sgu is not None:
-            h = self.sgu(h)
+            h = self.sgu(h, group)
         return self.proj_out(h, self.config.compute_dtype)
 
     def new_cache(self, batch: int, device) -> FFCache:

@@ -6,7 +6,9 @@ Counterpart of ``progen_tpu/models/progen.py``: token embedding ->
 GLU), then a scale-only norm and a linear logits head. Params in float32,
 compute in ``config.dtype``, logits in float32.
 
-``forward`` runs the full sequence through the kernels. With
+``forward`` runs the full sequence through the kernels; given a
+``parallel.Grid`` whose seq axis is above 1, it runs this rank's shard of
+each sequence (see ``models/layers.py``). With
 ``config.remat`` set and autograd recording, each attention and each
 feed-forward block is recomputed in the backward
 (``torch.utils.checkpoint``), the counterpart of ``nn.remat`` per block.
@@ -138,21 +140,35 @@ class ProGen(nn.Module):
         return self.to_logits(self.norm(x, c.compute_dtype),
                               c.compute_dtype).float()
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (batch, n) ints -> float32 logits (batch, n, num_tokens)."""
-        if tokens.shape[-1] % self.config.window_size:
+    def forward(self, tokens: torch.Tensor, grid=None) -> torch.Tensor:
+        """tokens (batch, n) ints -> float32 logits (batch, n, num_tokens).
+
+        With ``grid`` (``parallel.Grid``) of seq size S > 1, ``tokens`` are
+        this rank's positions ``grid.seq_slice(S * n)`` of each sequence,
+        and the logits are theirs; every rank of the seq group calls
+        forward together, as its collectives need."""
+        n = tokens.shape[-1]
+        if n % self.config.window_size:
             raise ValueError("sequence length must be a multiple of "
                              f"window_size={self.config.window_size}")
+        group = grid.seq_group if grid is not None and grid.seq > 1 else None
         x = self._embed(tokens)
-        sin, cos = self._tables(tokens.shape[-1])
+        if group is None:
+            sin, cos = self._tables(n)
+        else:  # this shard's rows of the whole sequence's tables
+            rows = grid.seq_slice(n * grid.seq)
+            sin, cos = (t[rows] for t in self._tables(n * grid.seq))
         remat = self.config.remat and torch.is_grad_enabled()
         for attn, ff in zip(self.attn, self.ff):
             if remat:
-                x = x + checkpoint(attn, x, sin, cos, use_reentrant=False)
-                x = x + checkpoint(ff, x, use_reentrant=False)
+                # the recompute runs the block's collectives again, on
+                # every rank in the same order
+                x = x + checkpoint(attn, x, sin, cos, group,
+                                   use_reentrant=False)
+                x = x + checkpoint(ff, x, group, use_reentrant=False)
             else:
-                x = x + attn(x, sin, cos)
-                x = x + ff(x)
+                x = x + attn(x, sin, cos, group)
+                x = x + ff(x, group)
         return self._logits(x)
 
     def init_cache(self, batch: int) -> DecodeCache:

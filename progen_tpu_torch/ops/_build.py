@@ -36,20 +36,22 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of each kernel's entry point, which ``csrc/<name>.cu``
 # exports under the kernel's name
 SIGNATURES = {
-    # q, k, v, out, bh, n, window, dim_head, scale, dtype, stream
-    "local_attention_fwd": (P, P, P, P, I, I, I, I, F, I, P),
-    # q, k, v, dout, dq, dk, dv, stats, bh, n, window, dim_head, scale,
-    # dtype, stream
-    "local_attention_bwd_kv": (P, P, P, P, P, P, P, P, I, I, I, I, F, I, P),
-    # q, k, v, dout, dq, dk2, dv2, stats, bh, n, window, dim_head, scale,
-    # dtype, stream
-    "local_attention_bwd_halo": (P, P, P, P, P, P, P, P, I, I, I, I, F, I,
-                                 P),
-    # x, scale, out, rows, n, d, eps, dtype, stream
-    "norm_shift": (P, P, P, I, I, I, F, I, P),
-    # x, gate, weights, biases, scale, out, stats, batch, n, d, eps, dtype,
-    # stream
-    "sgu_mix_gate": (P, P, P, P, P, P, P, I, I, I, F, I, P),
+    # q, k, v, halo_k, halo_v (NULL: none), out, bh, n, window, dim_head,
+    # scale, dtype, stream
+    "local_attention_fwd": (P, P, P, P, P, P, I, I, I, I, F, I, P),
+    # q, k, v, halo_k, halo_v, dout, dq, dk, dv, stats, bh, n, window,
+    # dim_head, scale, dtype, stream
+    "local_attention_bwd_kv": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, F,
+                               I, P),
+    # q, k, v, halo_k, halo_v, dout, dq, dk2, dv2, stats, bh, n, window,
+    # dim_head, scale, dtype, stream
+    "local_attention_bwd_halo": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, F,
+                                 I, P),
+    # x, prev (NULL: none), scale, out, rows, n, d, eps, dtype, stream
+    "norm_shift": (P, P, P, P, I, I, I, F, I, P),
+    # x, gate, weights, biases, scale, out, stats, batch, n, row0, rows, d,
+    # eps, dtype, stream
+    "sgu_mix_gate": (P, P, P, P, P, P, P, I, I, I, I, I, F, I, P),
 }
 KERNELS = tuple(sorted(SIGNATURES))
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}

@@ -11,6 +11,14 @@
   accumulation, add the bias, cast, then ``x * gate``. Kernel:
   ``csrc/sgu_mix_gate.cu``.
 
+Sequence shards (``parallel/``): ``norm_shift`` takes ``prev``, the
+last pre-norm row of the left neighbour's shard, which row 0 then takes
+its shifted half from (normalised, as any previous row is);
+``sgu_mix_gate`` takes ``row_offset`` with the shard's rows of x, the
+weights and the biases and the whole gate, as the TPU path shards the
+weight's output rows over seq (``partition.py``'s ``sgu_seq_out``). With
+``prev=None`` and ``row_offset=0`` both are the unsharded layer.
+
 Both are differentiable (``torch.autograd.Function``): the forward is
 the kernel, and the backward recomputes the plain composition
 (``norm_shift_reference``, ``sgu_mix_gate_reference``) under autograd
@@ -46,28 +54,38 @@ def norm_reference(x, scale, epsilon, out_dtype):
     return y.to(out_dtype)
 
 
-def norm_shift_reference(x, scale, epsilon, out_dtype):
-    return shift_tokens(norm_reference(x, scale, epsilon, out_dtype))
+def norm_shift_reference(x, scale, epsilon, out_dtype, prev=None):
+    """``prev`` (batch, 1, d): the pre-norm row before row 0, or None."""
+    state = None
+    if prev is not None:
+        split = x.shape[-1] - x.shape[-1] // 2
+        state = norm_reference(prev, scale, epsilon, out_dtype)[..., :split]
+    return shift_tokens(norm_reference(x, scale, epsilon, out_dtype),
+                        shift_state=state)
 
 
 def sgu_mix_gate_reference(x, gate, weights, biases, scale, epsilon,
-                           out_dtype):
+                           out_dtype, row_offset=0):
     g = norm_reference(gate, scale, epsilon, out_dtype)
-    g = causal_sgu_mix(g, weights, biases)
+    g = causal_sgu_mix(g, weights, biases, row_offset=row_offset)
     return x * g.to(x.dtype)
 
 
 def _reference_grads(fn, tensors, args, g):
     """The gradient of the plain composition ``fn(*tensors, *args)``
     against ``g``, recomputed under autograd: the backward of both
-    layers, as ``jax.vjp`` of the reference is in the JAX package."""
+    layers, as ``jax.vjp`` of the reference is in the JAX package. A
+    tensor that is None stays None and gets no gradient."""
     with torch.enable_grad():
-        inputs = [t.detach().requires_grad_(True) for t in tensors]
+        inputs = [None if t is None else t.detach().requires_grad_(True)
+                  for t in tensors]
         out = fn(*inputs, *args)
-        return torch.autograd.grad(out, inputs, g)
+        live = [t for t in inputs if t is not None]
+        grads = iter(torch.autograd.grad(out, live, g))
+        return [None if t is None else next(grads) for t in inputs]
 
 
-def _norm_shift_kernel(x, scale, epsilon, out_dtype):
+def _norm_shift_kernel(x, scale, epsilon, out_dtype, prev):
     if x.ndim != 3:
         raise ValueError(f"x must be (batch, n, d), got {tuple(x.shape)}")
     b, n, d = x.shape
@@ -78,13 +96,19 @@ def _norm_shift_kernel(x, scale, epsilon, out_dtype):
         raise ValueError(f"scale must be ({d},), got {tuple(scale.shape)}")
     if out_dtype != x.dtype:
         raise TypeError("kernel writes x's dtype")
+    if prev is not None:
+        if prev.shape != (b, 1, d) or prev.dtype != x.dtype:
+            raise ValueError(f"prev must be ({b}, 1, {d}) in x's dtype")
+        check_same_device(x, prev)
+        prev = prev.contiguous()
     check_same_device(x, scale)
     x = x.contiguous()
     scale = scale.float().contiguous()
     out = torch.empty_like(x)
     _build.launch(
         "norm_shift", x.device,
-        x.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        x.data_ptr(), None if prev is None else prev.data_ptr(),
+        scale.data_ptr(), out.data_ptr(),
         b * n, n, d, float(epsilon), _build.dtype_code(x),
     )
     norm_shift.launches += 1
@@ -93,37 +117,47 @@ def _norm_shift_kernel(x, scale, epsilon, out_dtype):
 
 class _NormShift(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, scale, epsilon, out_dtype):
-        ctx.save_for_backward(x, scale)
+    def forward(ctx, x, scale, prev, epsilon, out_dtype):
+        ctx.save_for_backward(x, scale, prev)
         ctx.args = (epsilon, out_dtype)
         if not takes_kernel(x):
-            return norm_shift_reference(x, scale, epsilon, out_dtype)
-        return _norm_shift_kernel(x, scale, epsilon, out_dtype)
+            return norm_shift_reference(x, scale, epsilon, out_dtype, prev)
+        return _norm_shift_kernel(x, scale, epsilon, out_dtype, prev)
 
     @staticmethod
     def backward(ctx, g):
-        grads = _reference_grads(norm_shift_reference, ctx.saved_tensors,
-                                 ctx.args, g)
+        x, scale, prev = ctx.saved_tensors
+        eps, dt = ctx.args
+        grads = _reference_grads(
+            lambda x_, s_, p_: norm_shift_reference(x_, s_, eps, dt, p_),
+            (x, scale, prev), (), g)
         return (*grads, None, None)
 
 
-def norm_shift(x, scale, epsilon, out_dtype):
+def norm_shift(x, scale, epsilon, out_dtype, prev=None):
     """x: (batch, n, d); scale: (d,). Returns (batch, n, d) in
-    ``out_dtype``."""
-    return _NormShift.apply(x, scale, epsilon, out_dtype)
+    ``out_dtype``. ``prev`` (batch, 1, d), in x's dtype: the pre-norm row
+    before row 0 (a sequence shard's left neighbour's last row), which
+    row 0 shifts in; None shifts in zeros."""
+    return _NormShift.apply(x, scale, prev, epsilon, out_dtype)
 
 
 norm_shift.launches = 0
 
 
 def _sgu_mix_gate_kernel(x, gate, weights, biases, scale, epsilon,
-                         out_dtype):
-    if gate.ndim != 3 or x.shape != gate.shape:
-        raise ValueError("x and gate must be one (batch, n, d) shape")
+                         out_dtype, row_offset):
+    if gate.ndim != 3 or x.ndim != 3 or x.shape[::2] != gate.shape[::2]:
+        raise ValueError("x and gate must be (batch, rows, d) and "
+                         "(batch, n, d)")
     b, n, d = gate.shape
-    if weights.shape != (n, n) or biases.shape != (n, 1) or \
+    rows = x.shape[1]
+    if not 0 <= row_offset <= n - rows:
+        raise ValueError(f"rows [{row_offset}, {row_offset + rows}) are "
+                         f"not within the gate's {n}")
+    if weights.shape != (rows, n) or biases.shape != (rows, 1) or \
             scale.shape != (d,):
-        raise ValueError("weights must be (n, n), biases (n, 1) and "
+        raise ValueError("weights must be (rows, n), biases (rows, 1) and "
                          "scale (d,)")
     if not (x.dtype == gate.dtype == out_dtype):
         raise TypeError("kernel takes x and gate in the output dtype")
@@ -138,7 +172,8 @@ def _sgu_mix_gate_kernel(x, gate, weights, biases, scale, epsilon,
         "sgu_mix_gate", x.device,
         x.data_ptr(), gate.data_ptr(), weights.data_ptr(),
         biases.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        stats.data_ptr(), b, n, d, float(epsilon), _build.dtype_code(x),
+        stats.data_ptr(), b, n, row_offset, rows, d, float(epsilon),
+        _build.dtype_code(x),
     )
     sgu_mix_gate.launches += 1
     return out
@@ -146,28 +181,37 @@ def _sgu_mix_gate_kernel(x, gate, weights, biases, scale, epsilon,
 
 class _SguMixGate(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, gate, weights, biases, scale, epsilon, out_dtype):
+    def forward(ctx, x, gate, weights, biases, scale, epsilon, out_dtype,
+                row_offset):
         ctx.save_for_backward(x, gate, weights, biases, scale)
-        ctx.args = (epsilon, out_dtype)
+        ctx.args = (epsilon, out_dtype, row_offset)
         if not takes_kernel(gate):
             return sgu_mix_gate_reference(x, gate, weights, biases, scale,
-                                          epsilon, out_dtype)
-        return _sgu_mix_gate_kernel(x, gate, weights, biases, scale,
-                                    epsilon, out_dtype)
+                                          epsilon, out_dtype, row_offset)
+        # a float32 gate holds values of the output dtype (see
+        # sgu_mix_gate), so this cast is exact
+        return _sgu_mix_gate_kernel(x, gate.to(out_dtype), weights, biases,
+                                    scale, epsilon, out_dtype, row_offset)
 
     @staticmethod
     def backward(ctx, g):
         grads = _reference_grads(sgu_mix_gate_reference, ctx.saved_tensors,
                                  ctx.args, g)
-        return (*grads, None, None)
+        return (*grads, None, None, None)
 
 
-def sgu_mix_gate(x, gate, weights, biases, scale, epsilon, out_dtype):
+def sgu_mix_gate(x, gate, weights, biases, scale, epsilon, out_dtype,
+                 row_offset=0):
     """x, gate: (batch, n, d) halves of the feed-forward hidden; weights
     (n, n) and biases (n, 1) float32; scale (d,). Returns (batch, n, d)
-    in x's dtype."""
+    in x's dtype. A sequence shard passes its rows [r0, r0 + rows) of x,
+    the weights and the biases, the whole gate and ``row_offset=r0``, and
+    gets those rows: (batch, rows, d). The gate may come in float32
+    holding values of x's dtype (a shard's gathered gate, upcast so that
+    its gradient, summed over the shards, is rounded once); the kernel
+    reads it in x's dtype."""
     return _SguMixGate.apply(x, gate, weights, biases, scale, epsilon,
-                             out_dtype)
+                             out_dtype, row_offset)
 
 
 sgu_mix_gate.launches = 0

@@ -13,9 +13,11 @@ from __future__ import annotations
 import torch
 
 
-def _dense_mix(gate: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """tril-masked dense mix, float32."""
-    w = torch.tril(weights.float())
+def _dense_mix(gate: torch.Tensor, weights: torch.Tensor,
+               row_offset: int = 0) -> torch.Tensor:
+    """tril-masked dense mix, float32; ``weights`` row m is output row
+    ``row_offset + m``."""
+    w = torch.tril(weights.float(), diagonal=row_offset)
     return torch.einsum("...nd,mn->...md", gate.float(), w)
 
 
@@ -35,14 +37,21 @@ def _block_triangular_mix(gate: torch.Tensor, weights: torch.Tensor,
 
 
 def causal_sgu_mix(gate: torch.Tensor, weights: torch.Tensor,
-                   biases: torch.Tensor, block_size: int = 0):
+                   biases: torch.Tensor, block_size: int = 0,
+                   row_offset: int = 0):
     """gate: (..., n, d); weights: (n, n), row m attends to columns <= m;
     biases: (n, 1). Returns (..., n, d) in gate.dtype:
-    out[m] = sum_{j<=m} W[m, j] gate[j] + b[m]."""
+    out[m] = sum_{j<=m} W[m, j] gate[j] + b[m].
+
+    A sequence shard passes the rows [r0, r0 + rows) of the weights and
+    biases and ``row_offset=r0`` with the whole gate, and gets those rows
+    of the output: (..., rows, d). Only the dense mix takes an offset."""
     gate32 = gate.float()
     if block_size > 0:
+        if row_offset:
+            raise ValueError("the block-triangular mix takes no row offset")
         mixed = _block_triangular_mix(gate32, weights, block_size)
     else:
-        mixed = _dense_mix(gate32, weights)
+        mixed = _dense_mix(gate32, weights, row_offset)
     mixed = mixed + biases.float()
     return mixed.to(gate.dtype)

@@ -50,3 +50,20 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, *,
     shape ``logits.shape[:-2]``: the masked mean over each sequence's
     kept positions. Callers average over the batch."""
     return sequence_scores(logits, targets, ignore_index=ignore_index)[0]
+
+
+def shard_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                        positions: slice, *,
+                        ignore_index: int = 0) -> torch.Tensor:
+    """A sequence shard's share of ``cross_entropy``: logits (..., n/S,
+    vocab) at ``positions`` of each sequence, targets (..., n) the whole
+    label rows. The mask is built from the whole row (the first pad may
+    lie in another shard), then cut to ``positions``; the numerator is
+    this shard's masked sum, the denominator the whole row's count of
+    kept positions, a constant every rank computes from the row it holds
+    (no collective). The shares summed over the seq group are the
+    per-sequence losses: shape ``logits.shape[:-2]``."""
+    mask = eos_loss_mask(targets, ignore_index)
+    lp = token_logprobs(logits, targets[..., positions])
+    num = (-lp * mask[..., positions].to(lp.dtype)).sum(dim=-1)
+    return num / mask.sum(dim=-1).to(lp.dtype)

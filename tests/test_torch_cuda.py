@@ -173,6 +173,182 @@ def test_sgu_mix_gate(dev, dtype, b, n, d):
            2 * rtol if dtype != torch.float32 else rtol)
 
 
+@pytest.mark.parametrize("impl", ["kv", "halo"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,n,d,w", SHAPES)
+def test_local_attention_halo(dev, impl, dtype, b, h, n, d, w):
+    """A4: the forward and both backwards with a halo against their plain
+    versions, each launch counted under A4's own names."""
+    gen = torch.Generator(device=dev).manual_seed(n + d + 2)
+    q, k, v, do = (_randn(gen, b, h, n, d, dtype=dtype, dev=dev)
+                   for _ in range(4))
+    hk, hv = (_randn(gen, b, h, w, d, dtype=dtype, dev=dev)
+              for _ in range(2))
+    fwd = cuda_attention.local_attention_halo_fwd
+    before = (fwd.launches, cuda_attention.local_attention_fwd.launches)
+    got = fwd(q, k, v, hk, hv, w)
+    assert (fwd.launches, cuda_attention.local_attention_fwd.launches) == \
+        (before[0] + 1, before[1])
+    _check(got, cuda_attention.local_attention_halo_fwd_reference(
+        q, k, v, hk, hv, w), *TOL[dtype])
+    fn = getattr(cuda_attention, f"local_attention_halo_bwd_{impl}")
+    ref = getattr(cuda_attention,
+                  f"local_attention_halo_bwd_{impl}_reference")
+    before = fn.launches
+    got = fn(q, k, v, hk, hv, do, w)
+    assert fn.launches == before + 1
+    for g, r in zip(got, ref(q, k, v, hk, hv, do, w)):
+        _check(g, r, *BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("impl", ["kv", "halo"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_shard_identity(dev, impl, dtype):
+    """Two shards through A4, each with its halo sliced from the other,
+    concatenated, equal A1 and A2/A3 on the whole sequence: the output and
+    dq bit for bit (one kernel over the same keys in the same order); dk
+    and dv once shard 1's halo gradient (halo_grads) is added to shard
+    0's last window, to the backward tolerance (two roundings there where
+    the whole sequence has one)."""
+    b, h, n, d, w = 2, 2, 512, 64, 128
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, k, v, do = (_randn(gen, b, h, n, d, dtype=dtype, dev=dev)
+                   for _ in range(4))
+    bwd_whole = getattr(cuda_attention, f"local_attention_bwd_{impl}")
+    bwd_shard = getattr(cuda_attention, f"local_attention_halo_bwd_{impl}")
+    whole = cuda_attention.local_attention_fwd(q, k, v, w)
+    gwhole = bwd_whole(q, k, v, do, w)
+    m = n // 2
+    s0, s1 = (slice(0, m), slice(m, n))
+    zeros = torch.zeros(b, h, w, d, dtype=dtype, device=dev)
+    halos = [(zeros, zeros), (k[:, :, m - w:m], v[:, :, m - w:m])]
+    outs, grads = [], []
+    for sl, (hk, hv) in zip((s0, s1), halos):
+        args = (q[:, :, sl], k[:, :, sl], v[:, :, sl], hk, hv)
+        outs.append(cuda_attention.local_attention_halo_fwd(*args, w))
+        grads.append(list(bwd_shard(*args, do[:, :, sl], w)))
+    dhk, dhv = cuda_attention.halo_grads(q[:, :, s1], k[:, :, s1],
+                                         v[:, :, s1], *halos[1],
+                                         do[:, :, s1], w)
+    grads[0][1][:, :, -w:] += dhk
+    grads[0][2][:, :, -w:] += dhv
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(outs, 2), whole)
+    got = [torch.cat(pair, 2) for pair in zip(*grads)]
+    assert torch.equal(got[0], gwhole[0])
+    for g, r in zip(got[1:], gwhole[1:]):
+        _check(g, r, *BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_norm_shift_prev_row(dev, dtype):
+    """L1 over two shards, the second with the first's last row as its
+    previous row, equals L1 over the whole sequence bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = _randn(gen, 2, 64, 512, dtype=dtype, dev=dev) * 3 + 1
+    scale = torch.rand(512, generator=gen, device=dev) + 0.5
+    whole = cuda_layers.norm_shift(x, scale, 1e-5, dtype)
+    first = cuda_layers.norm_shift(x[:, :32], scale, 1e-5, dtype)
+    second = cuda_layers.norm_shift(x[:, 32:], scale, 1e-5, dtype,
+                                    x[:, 31:32])
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat((first, second), 1), whole)
+    _check(second, cuda_layers.norm_shift_reference(
+        x[:, 32:], scale, 1e-5, dtype, x[:, 31:32]), *TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("row0,rows", [(0, 256), (256, 256), (100, 60)])
+def test_sgu_mix_gate_rows(dev, dtype, row0, rows):
+    """L2's rows [row0, row0 + rows) against the whole gate equal those
+    rows of the whole mix bit for bit, and the plain version."""
+    b, n, d = 2, 512, 128
+    gen = torch.Generator(device=dev).manual_seed(row0 + rows)
+    x, gate = (_randn(gen, b, n, d, dtype=dtype, dev=dev) for _ in range(2))
+    w = _randn(gen, n, n, dtype=torch.float32, dev=dev) / n ** 0.5
+    bias = _randn(gen, n, 1, dtype=torch.float32, dev=dev)
+    scale = torch.rand(d, generator=gen, device=dev) + 0.5
+    sl = slice(row0, row0 + rows)
+    whole = cuda_layers.sgu_mix_gate(x, gate, w, bias, scale, 1e-5, dtype)
+    args = (x[:, sl], gate, w[sl], bias[sl], scale, 1e-5, dtype, row0)
+    got = cuda_layers.sgu_mix_gate(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, whole[:, sl])
+    atol, rtol = TOL[dtype]
+    _check(got, cuda_layers.sgu_mix_gate_reference(*args),
+           2 * atol if dtype != torch.float32 else atol,
+           2 * rtol if dtype != torch.float32 else rtol)
+
+
+def _rank_forward(rank, port, out_dir):
+    """One of two ranks sharing card 0 over gloo: the sequence-sharded
+    forward and backward of a small model; saves what the test checks."""
+    import os
+
+    from progen_tpu_torch import ProGen, ProGenConfig
+    from progen_tpu_torch.parallel import init_grid
+    from progen_tpu_torch.parallel.collectives import all_reduce_
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE="2")
+    torch.cuda.set_device(0)
+    grid = init_grid(1, 2, "gloo", timeout=120)
+    model = ProGen(ProGenConfig(**SMALL), device="cuda", seed=0)
+    toks = torch.arange(2 * 64, device="cuda").reshape(2, 64) % 31 + 1
+    out = model(toks[:, grid.seq_slice(64)], grid)
+    has_grad_fn = out.grad_fn is not None
+    out.logsumexp(-1).sum().backward()
+    grads = [p.grad for p in model.parameters()]
+    all_reduce_(grads, grid.world_group)
+    torch.save({"logits": out.detach().cpu(), "grad_fn": has_grad_fn,
+                "grads": [g.cpu() for g in grads]},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def test_two_ranks_share_the_card_over_gloo(dev, tmp_path):
+    """Two gloo ranks on one card run the sequence-sharded model (A4, L1
+    with the halo row, L2 over the gathered gate): every output carries a
+    grad_fn, and the logits and the summed gradients agree with one
+    process on the whole sequence (bfloat16: logits to 0.1, gradients to
+    5e-2 of each tensor's largest)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from progen_tpu_torch import ProGen, ProGenConfig
+    from progen_tpu_torch.ops import _build
+
+    _build.build_all()  # once, here, not in both ranks at once
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_rank_forward, args=(r, port, str(tmp_path)))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=300)
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+    assert not alive and all(p.exitcode == 0 for p in procs), \
+        [p.exitcode for p in procs]
+    res = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    assert all(r["grad_fn"] for r in res)
+    model = ProGen(ProGenConfig(**SMALL), device="cuda", seed=0)
+    toks = torch.arange(2 * 64, device=dev).reshape(2, 64) % 31 + 1
+    want = model(toks)
+    want.logsumexp(-1).sum().backward()
+    got = torch.cat([r["logits"] for r in res], 1)
+    torch.testing.assert_close(got, want.detach().cpu(), atol=0.1, rtol=0)
+    for g, p in zip(res[0]["grads"], model.parameters()):
+        scale = p.grad.abs().max().item()
+        torch.testing.assert_close(g, p.grad.cpu(), atol=5e-2 * scale,
+                                   rtol=0)
+
+
 def test_model_forward_goes_through_kernels(dev, monkeypatch):
     from progen_tpu_torch import ProGen, ProGenConfig
 

@@ -47,7 +47,8 @@ def test_package_has_the_slice_modules():
                 "ops.cuda_layers", "ops.cuda_attention", "ops._build",
                 "models.layers", "models.progen", "training.loss",
                 "training.optimizer", "training.state", "training.step",
-                "workloads.scoring"):
+                "workloads.scoring", "parallel", "parallel.groups",
+                "parallel.collectives", "parallel.ring_attention"):
         assert f"progen_tpu_torch.{mod}" in names
 
 
