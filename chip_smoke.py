@@ -5,7 +5,10 @@
 
 Phases, one line each:
   1. build the CUDA kernels from progen_tpu_torch/csrc (one nvcc per
-     source, all at once);
+     source, all at once), and read, for each bfloat16/float16 kernel of
+     the attention backward, ptxas's registers and spills and the count
+     of tensor-core instructions in its machine code (cuobjdump -sass):
+     it fails if one has none, or spills at d = 64;
   2. at the base model's shapes (configs/model/base.toml), hold each
      kernel against its plain PyTorch version on the card, and time the
      kernel, the plain version and, where one exists, a single PyTorch
@@ -78,7 +81,7 @@ non-zero. The line before the last holds the card's name and power limit,
 the one before it the kernel table as JSON; the last line is the result.
 The full results (every kernel row, the main path's checks, profiles of
 one forward and one train step by kernel group, the seqpar phase, the
-nvcc logs) go to ``--details`` as JSON, by default build/chip_smoke.json.
+nvcc logs and the tensor-core kernels' ptxas and SASS counts) go to ``--details`` as JSON, by default build/chip_smoke.json.
 """
 
 import argparse
@@ -215,11 +218,15 @@ def plain_path():
         yield
 
 
-def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
+def bound_ms(nbytes: float, ops: float, dtype) -> dict:
+    """The least time of a kernel's work (its bytes moved once over the
+    memory rate, or its operations over the peak rate of their type,
+    whichever is longer), which of the two sets it, and the operations."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dtype] * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
-            "operations")
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                ops=ops)
 
 
 def visible_pairs(n: int, w: int, halo: bool = False) -> int:
@@ -248,7 +255,75 @@ def phase_build():
     for name in libs:
         _build.load(name)
     line("build", seconds=seconds, kernels=sorted(libs))
-    return {name: _build.build_log(name) for name in libs}
+    logs = {name: _build.build_log(name) for name in libs}
+    tc = tensor_core_kernels(logs, libs)
+    line("tensor-core kernels", **{
+        k: v for k, v in tc.items()
+        if "bfloat16, 64" in k or "bfloat16, 128" in k})
+    bad = [k for k, v in tc.items()
+           if v["mma_instructions"] + v["wgmma_instructions"] == 0
+           or (", 64" in k and v["spill_bytes"] != 0)]
+    if not tc:
+        bad.append("none found in the ptxas logs")
+    if bad:
+        raise AssertionError(f"tensor-core kernels without mma or with "
+                             f"spills at d = 64: {bad}")
+    return dict(logs=logs, seconds=seconds, tensor_core_kernels=tc)
+
+
+def tensor_core_kernels(logs: dict, libs: dict) -> dict:
+    """For each tensor-core kernel of the attention backward (``*_tc_``),
+    keyed "library: kernel<dtype, d, halo>": what ptxas reported
+    (registers, spilled bytes, stack frame) and the count of tensor-core
+    instructions (HMMA, or HGMMA for wgmma) in its machine code, read by
+    cuobjdump -sass from the built library."""
+    import re
+    import shutil
+
+    def short(entry):
+        m = re.search(r"((?:rows|kv|halo)_tc_kernel)I"
+                      r"(?:6__half|13__nv_bfloat16)Li(\d+)E(?:Lb([01])E)?",
+                      entry)
+        dtype = "bfloat16" if "bfloat16" in entry else "float16"
+        halo = ", halo" if m.group(3) == "1" else ""
+        return f"{m.group(1)}<{dtype}, {m.group(2)}{halo}>"
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = {}
+    for name, log in logs.items():
+        found, entry = {}, None
+        for ln in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                entry = m.group(1) if "_tc_kernel" in m.group(1) else None
+                if entry:
+                    found[entry] = dict(mma_instructions=0,
+                                        wgmma_instructions=0)
+            elif entry and "spill stores" in ln:
+                st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                                    ln)
+                found[entry]["spill_bytes"] = int(st) + int(ld)
+                found[entry]["stack_frame_bytes"] = int(
+                    re.search(r"(\d+) bytes stack frame", ln).group(1))
+            elif entry and "registers" in ln:
+                found[entry]["registers"] = int(
+                    re.search(r"Used (\d+) registers", ln).group(1))
+        if not found:
+            continue
+        sass = subprocess.run([tool, "-sass", str(libs[name])],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        fn = None
+        for ln in sass.splitlines():
+            m = re.search(r"Function : (\S+)", ln)
+            if m:
+                fn = m.group(1) if m.group(1) in found else None
+            elif fn and "HGMMA" in ln:
+                found[fn]["wgmma_instructions"] += 1
+            elif fn and "HMMA" in ln:
+                found[fn]["mma_instructions"] += 1
+        out.update({f"{name}: {short(e)}": v for e, v in found.items()})
+    return out
 
 
 def phase_kernels(cfg, cfg8k, card: str) -> list:
@@ -296,7 +371,7 @@ def phase_kernels(cfg, cfg8k, card: str) -> list:
         source="progen_tpu_torch/csrc/local_attention_fwd.cu",
         replaces="progen_tpu/ops/pallas_attention.py:552",
         ms=time_ms(lambda: fn(q, k, v, w)), plain_ms=plain_ms,
-        library_ms=lib_ms, bound_ms=bnd[0], bound_by=bnd[1],
+        library_ms=lib_ms, **bnd,
         library_max_abs_err=(lib.float() - want.float()).abs().max().item(),
         shape=[b, h, n, d], window=w, **err,
     ))
@@ -318,8 +393,7 @@ def phase_kernels(cfg, cfg8k, card: str) -> list:
         source="progen_tpu_torch/csrc/norm_shift.cu",
         replaces="progen_tpu/ops/pallas_layers.py:193",
         ms=time_ms(lambda: fn(x, scale, eps, dt)), plain_ms=plain_ms,
-        library_ms=None, bound_ms=bnd[0], bound_by=bnd[1],
-        shape=list(x.shape), **err,
+        library_ms=None, **bnd, shape=list(x.shape), **err,
     ))
     del x, got, want
 
@@ -343,8 +417,8 @@ def phase_kernels(cfg, cfg8k, card: str) -> list:
         source="progen_tpu_torch/csrc/sgu_mix_gate.cu",
         replaces="progen_tpu/ops/pallas_layers.py:258",
         ms=time_ms(lambda: fn(x, gate, wts, bias, scale, eps, dt)),
-        plain_ms=plain_ms, library_ms=None, bound_ms=bnd[0],
-        bound_by=bnd[1], shape=list(x.shape), **err,
+        plain_ms=plain_ms, library_ms=None, **bnd, shape=list(x.shape),
+        **err,
     ))
     del x, gate, got, want
 
@@ -353,10 +427,14 @@ def phase_kernels(cfg, cfg8k, card: str) -> list:
     fwd, step = per_forward(cfg), per_step(cfg)
     sp = seqpar_per_step(cfg8k)
     for r in rows:
+        # the bound's operations over the kernel's time, and the bound's
+        # share of that time
+        r["tflops"] = r["ops"] / (r["ms"] * 1e-3) / 1e12
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
         line(f"kernel {r['id']}", **{k: r[k] for k in (
             "name", "shape", "max_abs_err", "max_rel_err", "atol", "rtol",
             "worst_over_tolerance", "ms", "plain_ms", "library_ms",
-            "bound_ms", "bound_by")},
+            "bound_ms", "bound_by", "tflops", "share_of_bound")},
             launches_per_forward=fwd[r["id"]],
             launches_per_step=step[r["id"]],
             seqpar_launches_per_step_and_rank=sp[r["id"]], card=card)
@@ -416,8 +494,7 @@ def backward_rows(cfg, gen) -> list:
             replaces="progen_tpu/ops/pallas_attention.py:"
                      + ("652" if impl == "kv" else "683"),
             ms=time_ms(lambda: fn(q, k, v, do, w)), plain_ms=plain_ms,
-            library_ms=lib_ms, bound_ms=bnd[0], bound_by=bnd[1],
-            shape=[b, h, n, d], window=w,
+            library_ms=lib_ms, **bnd, shape=[b, h, n, d], window=w,
             errors=dict(zip(("dq", "dk", "dv"), errs)), **err,
         ))
         del got, want
@@ -481,7 +558,7 @@ def halo_rows(cfg, gen) -> list:
         ms=time_ms(lambda: ca.local_attention_halo_fwd(q, k, v, hk, hv, w)),
         plain_ms=time_ms(lambda: ca.local_attention_halo_fwd_reference(
             q, k, v, hk, hv, w), iters=3),
-        library_ms=lib_fwd_ms, bound_ms=fwd_bnd[0], bound_by=fwd_bnd[1],
+        library_ms=lib_fwd_ms, **fwd_bnd,
         **common, **err)]
     del got, want
     for rid, impl in (("A4-kv", "kv"), ("A4-halo", "halo")):
@@ -496,8 +573,8 @@ def halo_rows(cfg, gen) -> list:
             source=f"progen_tpu_torch/csrc/local_attention_bwd_{impl}.cu",
             ms=time_ms(lambda: fn(q, k, v, hk, hv, do, w)),
             plain_ms=time_ms(lambda: ref(q, k, v, hk, hv, do, w), iters=3),
-            library_ms=lib_bwd_ms, bound_ms=bwd_bnd[0],
-            bound_by=bwd_bnd[1], errors=dict(zip(("dq", "dk", "dv"), errs)),
+            library_ms=lib_bwd_ms, **bwd_bnd,
+            errors=dict(zip(("dq", "dk", "dv"), errs)),
             **common, **max(errs, key=lambda e: e["worst_over_tolerance"])))
         del got, want
     ident = shard_identity(cfg, gen)
@@ -700,10 +777,15 @@ def check_scores(cfg, model, model32, batch, run) -> dict:
 
 KERNEL_GROUPS = (  # kernel-name substring -> group in the breakdown
     ("local_attention_fwd", "A1 local_attention_fwd"),
-    # the row pass and the key pass of A2 (the profiled step runs "kv")
+    # the row pass and the key pass of A2 (the profiled step runs "kv"):
+    # the float32 FMA kernels, then the bfloat16/float16 tensor-core ones,
+    # ahead of the matrix-product names
     ("rows_kernel", "A2 local_attention_bwd_kv"),
     ("kv_kernel", "A2 local_attention_bwd_kv"),
     ("halo_kernel", "A3 local_attention_bwd_halo"),
+    ("rows_tc_kernel", "A2 local_attention_bwd_kv"),
+    ("kv_tc_kernel", "A2 local_attention_bwd_kv"),
+    ("halo_tc_kernel", "A3 local_attention_bwd_halo"),
     ("norm_shift", "L1 norm_shift"),
     ("sgu_", "L2 sgu_mix_gate"),
     ("nvjet", "matrix products"), ("gemm", "matrix products"),
@@ -1323,7 +1405,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
 
-    logs = phase_build()
+    build = phase_build()
     cfg = ProGenConfig.from_dict(load_toml_config(
         str(REPO / "configs" / "model" / "base.toml")))
     cfg8k = long8k_config()
@@ -1382,7 +1464,7 @@ def main() -> int:
     args.details.parent.mkdir(parents=True, exist_ok=True)
     args.details.write_text(json.dumps(
         {"card": card, "kernels": rows, "main_path": result,
-         "build_logs": logs}, indent=1, default=float))
+         "build": build}, indent=1, default=float))
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,10 @@
 // Shared half of the two local-attention backward kernels
-// (local_attention_bwd_kv.cu, A2, and local_attention_bwd_halo.cu, A3):
-// the row pass, which both launch first.
+// (local_attention_bwd_kv.cu, A2, replacing pallas_attention.py's
+// _bwd_kv_kernel_batched, and local_attention_bwd_halo.cu, A3, replacing
+// _bwd_kernel) in float32: the row pass, which both launch first, and the
+// helpers of their float32 key passes. bfloat16 and float16 take the
+// tensor-core kernels of local_attention_bwd_tc.cuh instead; what follows
+// describes the function both implement and the float32 design.
 //
 // The function is the forward of local_attention_fwd.cu: query row a of
 // window i sees the keys of [window i-1 | window i] with concatenated
@@ -32,14 +36,20 @@
 // recompute of window 0 outside the kernels (halo_grads in
 // ops/cuda_attention.py, _halo_grads there).
 //
-// Layout of the work: the head dim is cut into slices of DS = min(D, 32)
-// values and TPR = D / DS neighbouring threads share one row (or one key,
-// in the key passes), each holding its slice in registers; a dot product
-// is a DS-long fmaf chain per thread plus a butterfly over the TPR lanes.
-// Every pass computes s and dp with the same code (split_dot), so the
-// probabilities the key passes recompute are bit-equal to the ones the
-// statistics were taken over. Products and sums run in float32 on the FMA
-// units.
+// float32 layout of the work: the head dim is cut into slices of
+// DS = min(D, 32) values and TPR = D / DS neighbouring threads share one
+// row (or one key, in the key passes), each holding its slice in
+// registers; a dot product is a DS-long fmaf chain per thread plus a
+// butterfly over the TPR lanes. Key (row) tiles of 32 are staged in
+// shared memory as float32 by plain loads, one tile at a time. Every pass
+// computes s and dp with the same code (split_dot), so the probabilities
+// the key passes recompute are bit-equal to the ones the statistics were
+// taken over. Products and sums, p and ds included, run in float32 on the
+// FMA units (67 TFLOP/s on an H100, against 989 for bfloat16 on the
+// tensor cores): this path is bound by operations, far from the
+// function's bound, and is kept because the tensor cores cannot give
+// float32's accuracy (TF32 keeps about 3 digits), which the float32 model
+// and its 1e-4 card tolerance need.
 #pragma once
 
 #include "common.cuh"

@@ -39,7 +39,11 @@ and their plain versions.
   with no counterpart here.
 
 On the CPU each wrapper runs its plain version (``*_reference``); on the
-card it launches its kernel or raises.
+card it launches its kernel or raises. In bfloat16 and float16 the
+backward kernels (A2, A3, A4's) run their products on the tensor cores
+and round P and dS to the input dtype before the dV, dK and dQ products,
+where the plain versions (and the TPU kernels) keep them in float32; in
+float32 they run on the FMA units.
 """
 
 from __future__ import annotations
@@ -147,15 +151,18 @@ def local_attention_bwd_kv_reference(q, k, v, do, window_size, scale=None,
             dv.to(v.dtype).reshape(b, h, n, d))
 
 
-def _halo_combine(d2: torch.Tensor, w: int) -> torch.Tensor:
-    """(b, h, nw, 2w, d) [prev | cur] gradients -> (b, h, n, d): window i
-    gets program i's current half plus program i+1's previous half;
-    program 0's previous half (the phantom keys) is dropped."""
+def _halo_combine(d2: torch.Tensor, w: int, dtype=None) -> torch.Tensor:
+    """(b, h, nw, 2w, d) [prev | cur] gradients -> (b, h, n, d) in
+    ``dtype`` (d2's by default): window i gets program i's current half
+    plus program i+1's previous half, summed in d2's dtype and rounded
+    once; program 0's previous half (the phantom keys) is dropped. One add
+    that writes the rounded sum and one copy of the last window."""
     b, h, nw, _, d = d2.shape
-    cur = d2[:, :, :, w:]
-    nxt = torch.cat((d2[:, :, 1:, :w], torch.zeros_like(d2[:, :, :1, :w])),
-                    dim=2)
-    return (cur + nxt).reshape(b, h, nw * w, d)
+    out = torch.empty((b, h, nw, w, d), dtype=dtype or d2.dtype,
+                      device=d2.device)
+    torch.add(d2[:, :, :-1, w:], d2[:, :, 1:, :w], out=out[:, :, :-1])
+    out[:, :, -1] = d2[:, :, -1, w:]
+    return out.reshape(b, h, nw * w, d)
 
 
 def local_attention_bwd_halo_reference(q, k, v, do, window_size,
@@ -178,8 +185,7 @@ def local_attention_bwd_halo_reference(q, k, v, do, window_size,
     dk2 = _t_product(ds, qw) * scale
     dv2 = _t_product(p, dow)
     return (dq.to(q.dtype).reshape(b, h, n, d),
-            _halo_combine(dk2, w).to(k.dtype),
-            _halo_combine(dv2, w).to(v.dtype))
+            _halo_combine(dk2, w, k.dtype), _halo_combine(dv2, w, v.dtype))
 
 
 def local_attention_halo_fwd_reference(q, k, v, halo_k, halo_v,
@@ -307,6 +313,13 @@ def local_attention_halo_fwd(q, k, v, halo_k, halo_v, window_size,
 local_attention_halo_fwd.launches = 0
 
 
+def _aligned(t):
+    """``t`` contiguous at a 16-byte aligned address: the backward kernels
+    copy 16 bytes at a time (a view at an odd offset is copied)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _bwd(name, q, k, v, do, window_size, scale, halo_k=None, halo_v=None):
     """Launch A2 or A3 (``name``), without or with a halo. Returns dq and
     the kernel's dk, dv outputs (A3: the float32 scratch, not combined)."""
@@ -315,9 +328,8 @@ def _bwd(name, q, k, v, do, window_size, scale, halo_k=None, halo_v=None):
     if scale is None:
         scale = d ** -0.5
     w, nw = window_size, n // window_size
-    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
-    hk, hv = (None if t is None else t.contiguous()
-              for t in (halo_k, halo_v))
+    q, k, v, do = (_aligned(t) for t in (q, k, v, do))
+    hk, hv = (None if t is None else _aligned(t) for t in (halo_k, halo_v))
     dq = torch.empty_like(q)
     if name == "local_attention_bwd_kv":
         dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -364,8 +376,8 @@ local_attention_halo_bwd_kv.launches = 0
 
 def _combined(k, v, dq, dk2, dv2, window_size):
     """A3's outputs with the float32 scratch combined and cast."""
-    return (dq, _halo_combine(dk2, window_size).to(k.dtype),
-            _halo_combine(dv2, window_size).to(v.dtype))
+    return (dq, _halo_combine(dk2, window_size, k.dtype),
+            _halo_combine(dv2, window_size, v.dtype))
 
 
 def local_attention_bwd_halo(q, k, v, do, window_size, scale=None):

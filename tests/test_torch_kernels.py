@@ -315,6 +315,53 @@ class TestSguMixGate:
         assert not torch.equal(out, unrounded)
 
 
+class TestTensorCoreRounding:
+    """The one numerical departure of the bfloat16/float16 backward kernels
+    (A2, A3, A4's backwards on the card's tensor cores): P and dS are
+    rounded to the input dtype before the dV, dK and dQ products, where
+    the TPU kernel keeps them in float32. Written out here, on the plain
+    composition, and held against the TPU kernel's gradient at the card
+    tests' bfloat16 tolerance (1e-2 + 1e-2 * |want|)."""
+
+    @staticmethod
+    def _rounded_backward(q, k, v, do, w):
+        from progen_tpu_torch.ops.attention import with_prev_window
+
+        scale = q.shape[-1] ** -0.5
+        qw, kw, vw, dow = (cuda_attention._windows(t, w)
+                           for t in (q, k, v, do))
+        k2, v2 = with_prev_window(kw, None), with_prev_window(vw, None)
+        p = cuda_attention._softmax_rows(qw, k2, w, scale)
+        ds = cuda_attention._ds(p, dow, v2)
+        p, ds = p.bfloat16().float(), ds.bfloat16().float()
+        dq = torch.einsum("...ij,...jd->...id", ds, k2) * scale
+        dk2 = cuda_attention._t_product(ds, qw) * scale
+        dv2 = cuda_attention._t_product(p, dow)
+        return (dq.reshape(q.shape),
+                cuda_attention._halo_combine(dk2, w),
+                cuda_attention._halo_combine(dv2, w))
+
+    def test_rounded_p_and_ds_within_card_tolerance(self):
+        w = 64
+        rng = np.random.default_rng(30)
+        (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = (
+            _pair(rng.standard_normal((2, 2, 128, 64), np.float32),
+                  "bfloat16") for _ in range(4))
+        _, vjp = jax.vjp(
+            lambda q, k, v: pallas_local_attention(q, k, v, w, None, True,
+                                                   "kv", 1, "pallas"),
+            jq, jk, jv)
+        want = vjp(jdo)
+        got = self._rounded_backward(tq, tk, tv, tdo, w)
+        exact = cuda_attention.local_attention_bwd_halo_reference(
+            tq.float(), tk.float(), tv.float(), tdo.float(), w)
+        for j, t, e in zip(want, got, exact):
+            assert not torch.equal(t, e)  # the rounding is a real change
+            np.testing.assert_allclose(
+                t.numpy(), np.asarray(j.astype(jnp.float32)), atol=1e-2,
+                rtol=1e-2)
+
+
 class TestDispatch:
     def test_cpu_tensor_takes_plain_version(self):
         assert not takes_kernel(torch.zeros(1))
