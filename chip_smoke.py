@@ -6,15 +6,17 @@
 Phases, one line each:
   1. build the CUDA kernels from progen_tpu_torch/csrc (one nvcc per
      source, all at once), and read, for each bfloat16/float16 kernel of
-     the attention backward, ptxas's registers and spills and the count
-     of tensor-core instructions in its machine code (cuobjdump -sass):
-     it fails if one has none, or spills at d = 64;
+     the attention (the forward A1/A4 and the backwards' row and key
+     passes), ptxas's registers and spills and the count of tensor-core
+     instructions in its machine code (cuobjdump -sass): it fails if one
+     has none, or spills at d = 64;
   2. at the base model's shapes (configs/model/base.toml), hold each
      kernel against its plain PyTorch version on the card, and time the
      kernel, the plain version and, where one exists, a single PyTorch
-     call computing the same function: the forward kernels at the
-     scoring batch of 8, the attention backwards A2 (kv-centric) and A3
-     (halo) at the training micro-batch of 4;
+     call computing the same function: the forward kernels (A1 on the
+     tensor cores, beside scaled_dot_product_attention) at the scoring
+     batch of 8, the attention backwards A2 (kv-centric) and A3 (halo) at
+     the training micro-batch of 4;
   3. the main path, driven once with the launch counts set to 0 just
      before and read just after: the base model (dim 1024, depth 24,
      heads 16, dim_head 64, window 512, seq_len 1024, ~401M parameters,
@@ -263,17 +265,20 @@ def phase_build():
     bad = [k for k, v in tc.items()
            if v["mma_instructions"] + v["wgmma_instructions"] == 0
            or (", 64" in k and v["spill_bytes"] != 0)]
-    if not tc:
-        bad.append("none found in the ptxas logs")
+    bad += [f"{kern}<{dt}, 64> not found in the ptxas logs"
+            for kern in ("fwd", "rows", "kv", "halo")
+            for dt in ("bfloat16", "float16")
+            if not any(f"{kern}_tc_kernel<{dt}, 64" in k for k in tc)]
     if bad:
-        raise AssertionError(f"tensor-core kernels without mma or with "
-                             f"spills at d = 64: {bad}")
+        raise AssertionError(f"tensor-core kernels missing, without mma "
+                             f"or with spills at d = 64: {bad}")
     return dict(logs=logs, seconds=seconds, tensor_core_kernels=tc)
 
 
 def tensor_core_kernels(logs: dict, libs: dict) -> dict:
-    """For each tensor-core kernel of the attention backward (``*_tc_``),
-    keyed "library: kernel<dtype, d, halo>": what ptxas reported
+    """For each tensor-core kernel of the attention (``*_tc_``: the
+    forward and the backwards' passes), keyed "library: kernel<dtype, d,
+    halo>": what ptxas reported
     (registers, spilled bytes, stack frame) and the count of tensor-core
     instructions (HMMA, or HGMMA for wgmma) in its machine code, read by
     cuobjdump -sass from the built library."""
@@ -281,7 +286,7 @@ def tensor_core_kernels(logs: dict, libs: dict) -> dict:
     import shutil
 
     def short(entry):
-        m = re.search(r"((?:rows|kv|halo)_tc_kernel)I"
+        m = re.search(r"((?:fwd|rows|kv|halo)_tc_kernel)I"
                       r"(?:6__half|13__nv_bfloat16)Li(\d+)E(?:Lb([01])E)?",
                       entry)
         dtype = "bfloat16" if "bfloat16" in entry else "float16"
@@ -776,7 +781,9 @@ def check_scores(cfg, model, model32, batch, run) -> dict:
 
 
 KERNEL_GROUPS = (  # kernel-name substring -> group in the breakdown
+    # A1: the float32 FMA kernel, then the bfloat16/float16 tensor-core one
     ("local_attention_fwd", "A1 local_attention_fwd"),
+    ("fwd_tc_kernel", "A1 local_attention_fwd"),
     # the row pass and the key pass of A2 (the profiled step runs "kv"):
     # the float32 FMA kernels, then the bfloat16/float16 tensor-core ones,
     # ahead of the matrix-product names

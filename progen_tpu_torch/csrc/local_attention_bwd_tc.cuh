@@ -1,152 +1,45 @@
-// Tensor-core building blocks of the local-attention backward, for the
-// bfloat16 and float16 instantiations of local_attention_bwd_kv.cu (A2)
-// and local_attention_bwd_halo.cu (A3): the row pass both launch first,
-// and the per-tile step of their key passes. float32 keeps the FMA
-// kernels of local_attention_bwd.cuh.
+// Tensor-core passes of the local-attention backward, for the bfloat16
+// and float16 instantiations of local_attention_bwd_kv.cu (A2) and
+// local_attention_bwd_halo.cu (A3): the row pass both launch first, and
+// the per-tile step of their key passes. float32 keeps the FMA kernels of
+// local_attention_bwd.cuh. The primitives (cp.async, ldmatrix, mma.sync,
+// the padded stride, acc_product) are attention_tc.cuh's, shared with the
+// forward.
 //
-// Products: mma.sync.aligned.m16n8k16 with bf16/fp16 operands and float32
-// accumulators (Ampere's warp-level instruction, which Hopper runs at
-// about two thirds of wgmma's rate). A block is 4 warps; each warp owns
-// 16 query rows (row pass) or 16 keys (key passes) and forms 16 x 64
-// tiles of S = Q K^T and dP = dO V^T (key passes: S^T = K Q^T and
-// dP^T = V dO^T) against 64-key (64-row) tiles in shared memory. The
-// float32 results then pass as the A operand of the next product
-// (dQ += dS K, dV += P^T dO, dK += dS^T Q) straight from registers: the
-// accumulator layout of m16n8 is the A layout of m16k16 once two n-tiles
-// are packed to T pairs. That packing is the one numerical departure from
-// the TPU kernel: P and dS are rounded to T before the three products that
-// take them (pallas_attention.py keeps them in float32). S and dP are
-// exact products of T values summed in float32, so the softmax statistics
-// are as exact as the FMA kernels'.
+// Each warp owns 16 query rows (row pass) or 16 keys (key passes) and
+// forms 16 x 64 tiles of S = Q K^T and dP = dO V^T (key passes: S^T = K
+// Q^T and dP^T = V dO^T) against 64-key (64-row) tiles in shared memory.
+// The float32 results then pass as the A operand of the next product
+// (dQ += dS K, dV += P^T dO, dK += dS^T Q) straight from registers. That
+// packing is the one numerical departure from the TPU kernel: P and dS
+// are rounded to T before the three products that take them
+// (pallas_attention.py keeps them in float32). S and dP are exact
+// products of T values summed in float32, so the softmax statistics are
+// as exact as the FMA kernels'.
 //
-// Operands reach the mma through ldmatrix from shared memory: row-major
-// tiles with a row stride of D + 8 elements (a 16-byte pad, so the 8 rows
-// of an 8x8 matrix fall in 8 different bank groups), plain for the
-// operands whose reduction runs along the head dim (Q, K, V, dO in S and
-// dP) and .trans for those whose reduction runs along the rows (K in dQ,
-// Q and dO in dK and dV). Tiles arrive by cp.async (16 bytes a thread,
-// rows outside the range zero-filled by the copy itself), double-buffered:
-// tile i + 1 is in flight while tile i is used. The statistics of the row
-// pass are {m, 1 / l, delta, 0} with m in base-2 units (scores are scaled
-// by scale * log2(e) and exponentiated with exp2f), unlike the FMA
-// kernels' {m, l, delta, 0}; each dtype's row pass feeds its own key pass.
+// Operands whose reduction runs along the head dim (Q, K, V, dO in S and
+// dP) are read by plain ldmatrix; those whose reduction runs along the
+// rows (K in dQ, Q and dO in dK and dV) by .trans. Tiles are
+// double-buffered: tile i + 1 is in flight while tile i is used. The
+// statistics of the row pass are {m, 1 / l, delta, 0} with m in base-2
+// units (scores are scaled by scale * log2(e) and exponentiated with
+// exp2f), unlike the FMA kernels' {m, l, delta, 0}; each dtype's row pass
+// feeds its own key pass.
 #pragma once
 
-#include <stddef.h>
-#include <stdint.h>
-
-#include "common.cuh"
+#include "attention_tc.cuh"
 
 namespace progen_attn_tc {
 
-constexpr int THREADS = 128;  // threads per block: 4 warps
-constexpr int TILE = 64;  // query rows a row-pass block owns, keys a key
-                          // tile holds, keys a key-pass block owns
-constexpr float LOG2E = 1.4426950408889634f;
-
 template <int D>
 struct Shape {
-  static constexpr int LD = D + 8;              // shared row stride
+  static constexpr int LD = Padded<D>::LD;      // shared row stride
   static constexpr int RT = D <= 64 ? 64 : 32;  // rows per key-pass tile
   // row pass: Q, dO, and two buffers each of K and V
   static constexpr int ROWS_SMEM = 6 * TILE * LD * 2;
   // key pass: K, V, two buffers each of Q, dO and the row statistics
   static constexpr int KEYS_SMEM = (2 * TILE + 4 * RT) * LD * 2 + 2 * RT * 16;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes from global to shared; bytes = 0 fills the 16 with zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c (16 x 8, float32) += a (16 x 16) b (16 x 8), both in T.
-template <typename T>
-struct Mma;
-template <>
-struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(float* c, const uint32_t* a,
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  // (lo, hi) rounded to nearest even, lo in the low half
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-template <>
-struct Mma<__half> {
-  static __device__ __forceinline__ void run(float* c, const uint32_t* a,
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-// Stage rows [r0, r0 + R) of a (rows, D) slab into dst[R][LD] with
-// cp.async; rows at or past `hi` are zeros. With HALO, rows -w .. -1 come
-// from the (w, D) halo slab; without it, negative rows are zeros.
-template <typename T, int R, int D, bool HALO>
-__device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src,
-                                          const T* __restrict__ halo, int r0,
-                                          int hi, int w) {
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  constexpr int LD = Shape<D>::LD;
-  for (int idx = threadIdx.x; idx < R * CPR; idx += THREADS) {
-    const int rr = idx / CPR;
-    const int ch = idx - rr * CPR;
-    const int r = r0 + rr;
-    const bool ok = r < hi && (HALO || r >= 0);
-    const T* g = src;
-    if (ok)
-      g = (HALO && r < 0 ? halo + (ptrdiff_t)(r + w) * D
-                         : src + (ptrdiff_t)r * D) +
-          ch * 8;
-    cp_async16(dst + rr * LD + ch * 8, g, ok ? 16 : 0);
-  }
-}
 
 // The statistics of rows [r0, r0 + R); rows at or past `hi` are zeros.
 template <int R>
@@ -192,37 +85,6 @@ __device__ __forceinline__ void two_products(const T* a1, const T* b1,
       Mma<T>::run(y[2 * p + 1], fa2, fb[2], fb[3]);
     }
   }
-}
-
-// out[D / 8][4] += X B for one warp: X is the warp's [16][N] float32
-// accumulator (as two_products lays it out), rounded to T here; B is
-// [N][LD] in shared memory, reduced over its N rows.
-template <typename T, int D, int N>
-__device__ __forceinline__ void acc_product(const float (*x)[4], const T* b,
-                                            float (*out)[4], int lane) {
-  constexpr int LD = Shape<D>::LD;
-  const int br = lane % 8 + ((lane / 8) & 1) * 8, bc = (lane / 16) * 8;
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
-    uint32_t a[4];
-    a[0] = Mma<T>::pack(x[2 * kk][0], x[2 * kk][1]);
-    a[1] = Mma<T>::pack(x[2 * kk][2], x[2 * kk][3]);
-    a[2] = Mma<T>::pack(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    a[3] = Mma<T>::pack(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-#pragma unroll
-    for (int p = 0; p < D / 16; ++p) {
-      uint32_t fb[4];
-      ldsm_x4_t(fb, b + (16 * kk + br) * LD + 16 * p + bc);
-      Mma<T>::run(out[2 * p], a, fb[0], fb[1]);
-      Mma<T>::run(out[2 * p + 1], a, fb[2], fb[3]);
-    }
-  }
-}
-
-// Two T values to global memory as one 4-byte store.
-template <typename T>
-__device__ __forceinline__ void store2(T* p, float lo, float hi) {
-  *reinterpret_cast<uint32_t*>(p) = Mma<T>::pack(lo, hi);
 }
 
 // Row pass on tensor cores: grid (ceil(w / TILE), n / w, bh), THREADS
@@ -459,12 +321,6 @@ int launch_rows(const T* q, const T* k, const T* v, const T* hk, const T* hv,
   kernel<<<grid, THREADS, smem, stream>>>(q, k, v, hk, hv, dout, dq, stats,
                                           n, w, scale);
   return (int)cudaGetLastError();
-}
-
-// The tensor-core kernels read 16 bytes at a time: every pointer must be
-// 16-byte aligned (rows are: D is a multiple of 8).
-inline bool aligned16(const void* p) {
-  return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace progen_attn_tc

@@ -5,10 +5,11 @@ and their plain versions.
   ``progen_tpu/ops/pallas_attention.py:_fwd`` (body ``_fwd_kernel``). It
   computes exactly what that kernel computes: query window i sees
   [window i-1 | window i] with the mask ``j <= i + w``; window 0's
-  previous window is zeros that still count in the softmax; scores,
-  softmax and P·V in float32 (P is NOT rounded to the input dtype, unlike
-  the plain ``ops/attention.py:local_attention``); the output in q's
-  dtype. Kernel: ``csrc/local_attention_fwd.cu``.
+  previous window is zeros that still count in the softmax; scores and
+  softmax in float32, the output in q's dtype. The plain version, like the
+  TPU kernel, takes P·V in float32 (P is NOT rounded to the input dtype,
+  unlike the plain ``ops/attention.py:local_attention``). Kernel:
+  ``csrc/local_attention_fwd.cu``.
 * ``local_attention_bwd_kv`` (A2) replaces ``_bwd_core``'s kv branch
   (body ``_bwd_kv_kernel_batched``): for key window j, recompute the
   softmax rows of query windows j and j+1; dq_j from row j, dk_j and dv_j
@@ -39,11 +40,14 @@ and their plain versions.
   with no counterpart here.
 
 On the CPU each wrapper runs its plain version (``*_reference``); on the
-card it launches its kernel or raises. In bfloat16 and float16 the
-backward kernels (A2, A3, A4's) run their products on the tensor cores
-and round P and dS to the input dtype before the dV, dK and dQ products,
-where the plain versions (and the TPU kernels) keep them in float32; in
-float32 they run on the FMA units.
+card it launches its kernel or raises. In bfloat16 and float16 every
+kernel (A1 to A4) runs its products on the tensor cores, where the plain
+versions (and the TPU kernels) keep P and dS in float32: the backwards
+round P and dS to the input dtype before the dV, dK and dQ products; the
+forward carries P into P·V as two input-dtype parts (its rounding and the
+rounded remainder, about 16 significant bits in bfloat16) and sums the
+softmax's denominator from the float32 P. In float32 the kernels run on
+the FMA units, all in float32.
 """
 
 from __future__ import annotations
@@ -272,9 +276,8 @@ def _fwd(q, k, v, window_size, scale, halo_k=None, halo_v=None):
     _check_halo(q, halo_k, halo_v, window_size)
     if scale is None:
         scale = d ** -0.5
-    q, k, v = (t.contiguous() for t in (q, k, v))
-    hk, hv = (None if t is None else t.contiguous()
-              for t in (halo_k, halo_v))
+    q, k, v = (_aligned(t) for t in (q, k, v))
+    hk, hv = (None if t is None else _aligned(t) for t in (halo_k, halo_v))
     out = torch.empty_like(q)
     _build.launch(
         "local_attention_fwd", q.device,
@@ -314,8 +317,8 @@ local_attention_halo_fwd.launches = 0
 
 
 def _aligned(t):
-    """``t`` contiguous at a 16-byte aligned address: the backward kernels
-    copy 16 bytes at a time (a view at an odd offset is copied)."""
+    """``t`` contiguous at a 16-byte aligned address: the kernels copy 16
+    bytes at a time (a view at an odd offset is copied)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 

@@ -16,10 +16,11 @@ tail, whose product x * gate rounds twice. The attention backward in
 float32 to 1e-4 absolute plus 1e-4 relative: each gradient is a second
 float32 sum, over up to 2w rows or keys, of terms that themselves come
 from the softmax statistics, both taken in another order than the plain
-version takes them. In bfloat16 and float16 the backward kernels run on
-the tensor cores and round P and dS to the input dtype before the
-products that take them; the plain version keeps them in float32, and
-the same 1e-2 tolerance holds.
+version takes them. In bfloat16 and float16 the forward and backward
+kernels run on the tensor cores: the backwards round P and dS to the
+input dtype before the products that take them, the forward carries P
+into P·V as two input-dtype parts; the plain version keeps them in
+float32, and the same 1e-2 tolerance holds.
 """
 
 import pytest
@@ -75,6 +76,49 @@ def test_local_attention_fwd(dev, dtype, b, h, n, d, w):
     assert cuda_attention.local_attention_fwd.launches == before + 1
     want = cuda_attention.local_attention_fwd_reference(q, k, v, w)
     _check(got, want, *TOL[dtype])
+
+
+@pytest.mark.parametrize("halo", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_local_attention_fwd_is_deterministic(dev, dtype, halo):
+    """A1 and A4's forward launched twice on the same inputs give
+    bit-equal outputs (the shard identity needs them so)."""
+    b, h, n, d, w = 2, 2, 512, 64, 128
+    gen = torch.Generator(device=dev).manual_seed(6)
+    q, k, v = (_randn(gen, b, h, n, d, dtype=dtype, dev=dev)
+               for _ in range(3))
+    if halo:
+        hk, hv = (_randn(gen, b, h, w, d, dtype=dtype, dev=dev)
+                  for _ in range(2))
+        runs = [cuda_attention.local_attention_halo_fwd(q, k, v, hk, hv, w)
+                for _ in range(2)]
+    else:
+        runs = [cuda_attention.local_attention_fwd(q, k, v, w)
+                for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(*runs)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_local_attention_fwd_takes_tensor_cores(dev, dtype):
+    """A bfloat16 or float16 call launches the tensor-core kernel, which
+    sums in another order than the FMA kernel and carries P into P·V as
+    two input-dtype parts: counted once, its output differs from the
+    float32 FMA kernel's on the same values (which it would equal, rounded,
+    if the call took the FMA kernel) and stays within the tolerance of
+    it."""
+    b, h, n, d, w = 2, 4, 1024, 64, 512
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q, k, v = (_randn(gen, b, h, n, d, dtype=dtype, dev=dev)
+               for _ in range(3))
+    fn = cuda_attention.local_attention_fwd
+    before = fn.launches
+    got = fn(q, k, v, w)
+    assert fn.launches == before + 1
+    fma = fn(q.float(), k.float(), v.float(), w).to(dtype)
+    torch.cuda.synchronize()
+    assert not torch.equal(got, fma)
+    _check(got, fma, *TOL[dtype])
 
 
 @pytest.mark.parametrize("impl", ["kv", "halo"])

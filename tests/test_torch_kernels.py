@@ -87,8 +87,12 @@ class TestLocalAttentionFwd:
                "float32")
 
     def test_pv_in_float32_unlike_plain_attention(self):
-        """The kernel keeps P in float32 for P·V; the plain attention op
-        rounds P to bfloat16 first. The two differ in bfloat16."""
+        """The kernel's plain version (like the TPU kernel and the float32
+        FMA kernel on the card) keeps P in float32 for P·V; the plain
+        attention op rounds P to bfloat16 first. The two differ in
+        bfloat16. (The bfloat16 kernel on the card carries P as two
+        bfloat16 parts:
+        ``TestTensorCoreRounding.test_split_p_forward_within_card_tolerance``.)"""
         from progen_tpu_torch.ops.attention import local_attention
 
         rng = np.random.default_rng(12)
@@ -316,12 +320,74 @@ class TestSguMixGate:
 
 
 class TestTensorCoreRounding:
-    """The one numerical departure of the bfloat16/float16 backward kernels
-    (A2, A3, A4's backwards on the card's tensor cores): P and dS are
-    rounded to the input dtype before the dV, dK and dQ products, where
-    the TPU kernel keeps them in float32. Written out here, on the plain
-    composition, and held against the TPU kernel's gradient at the card
-    tests' bfloat16 tolerance (1e-2 + 1e-2 * |want|)."""
+    """The numerical departures of the bfloat16/float16 kernels on the
+    card's tensor cores, where the TPU kernel keeps P and dS in float32:
+    the backwards (A2, A3, A4's) round P and dS to the input dtype before
+    the dV, dK and dQ products; the forward (A1, A4's) carries P into P·V
+    as two input-dtype parts, its rounding and the rounded remainder.
+    Written out here, on the plain composition, and held against the TPU
+    kernel's output and gradient at the card tests' bfloat16 tolerance
+    (1e-2 + 1e-2 * |want|)."""
+
+    @staticmethod
+    def _tc_forward(q, k, v, w, split=True, tile=64):
+        """The forward as the tensor-core kernel takes it, in float32
+        before the output's rounding: per window, the previous window's
+        keys and then its own, each range cut into ``tile``-key tiles from
+        its own start, through an online softmax in base 2 (scores scaled
+        by scale * log2(e)); each tile's P, exp2(s - m) in float32, enters
+        P·V as bfloat16 hi + lo (hi = P rounded, lo = P - hi rounded; with
+        ``split=False``, hi alone), and l is summed from the float32 P.
+        Window 0 starts at max 0 and denominator w (the phantom keys) and
+        sees no previous keys."""
+        c = q.shape[-1] ** -0.5 * 1.4426950408889634
+        qw, kw, vw = (cuda_attention._windows(t, w) for t in (q, k, v))
+        nw = qw.shape[2]
+        first = (torch.arange(nw) == 0)[:, None]  # (nw, 1)
+        m = torch.where(first, 0.0, -torch.inf).expand(*qw.shape[:-1])
+        l = torch.where(first, float(w), 0.0).expand(*qw.shape[:-1])
+        acc = torch.zeros_like(qw)
+        a = torch.arange(w)[:, None]  # the row within its window
+        prev_k = torch.cat((torch.zeros_like(kw[:, :, :1]), kw[:, :, :-1]), 2)
+        prev_v = torch.cat((torch.zeros_like(vw[:, :, :1]), vw[:, :, :-1]), 2)
+        for ks, vs, own in ((prev_k, prev_v, False), (kw, vw, True)):
+            for t0 in range(0, w, tile):
+                j = torch.arange(t0, min(t0 + tile, w))[None, :]
+                kt, vt = ks[..., t0:t0 + tile, :], vs[..., t0:t0 + tile, :]
+                s = torch.einsum("...id,...jd->...ij", qw, kt) * c
+                vis = (j <= a) if own else ~first[..., None]
+                s = s.masked_fill(~vis, -torch.inf)
+                m_new = torch.maximum(m, s.amax(-1))
+                ms = torch.where(m_new == -torch.inf, 0.0, m_new)
+                corr = torch.exp2(m - ms)
+                p = torch.exp2(s - ms[..., None])
+                l = l * corr + p.sum(-1)
+                hi = p.bfloat16().float()
+                lo = (p - hi).bfloat16().float() if split else 0 * hi
+                acc = acc * corr[..., None] + torch.einsum(
+                    "...ij,...jd->...id", hi, vt) + torch.einsum(
+                    "...ij,...jd->...id", lo, vt)
+                m = m_new
+        return (acc * (1 / l)[..., None]).reshape(q.shape)
+
+    def test_split_p_forward_within_card_tolerance(self):
+        w = 128
+        rng = np.random.default_rng(31)
+        (jq, tq), (jk, tk), (jv, tv) = (
+            _pair(rng.standard_normal((2, 2, 256, 64), np.float32),
+                  "bfloat16") for _ in range(3))
+        want = pallas_local_attention(jq, jk, jv, w, None, True, "kv", 1,
+                                      "pallas")
+        got = self._tc_forward(tq, tk, tv, w)
+        once = self._tc_forward(tq, tk, tv, w, split=False)
+        exact = cuda_attention.local_attention_fwd_reference(
+            tq.float(), tk.float(), tv.float(), w)
+        # the split carries P about 8 bits further than one rounding
+        assert (got - exact).abs().max() * 16 < (once - exact).abs().max()
+        for t in (got.bfloat16(), exact.bfloat16()):
+            np.testing.assert_allclose(
+                t.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                atol=1e-2, rtol=1e-2)
 
     @staticmethod
     def _rounded_backward(q, k, v, do, w):
