@@ -7,13 +7,17 @@ Phases, one line each:
   1. build the CUDA kernels from progen_tpu_torch/csrc (one nvcc per
      source, all at once), and read, for each bfloat16/float16 kernel of
      the attention (the forward A1/A4 and the backwards' row and key
-     passes), ptxas's registers and spills and the count of tensor-core
-     instructions in its machine code (cuobjdump -sass): it fails if one
-     has none, or spills at d = 64;
+     passes) and the SGU tail's bfloat16 mix (L2), ptxas's registers and
+     spills and the count of tensor-core instructions in its machine code
+     (cuobjdump -sass): it fails if one has none, or spills (the
+     attention's at d = 64);
   2. at the base model's shapes (configs/model/base.toml), hold each
      kernel against its plain PyTorch version on the card, and time the
-     kernel, the plain version and, where one exists, a single PyTorch
-     call computing the same function: the forward kernels (A1 on the
+     kernel (by CUDA events around back-to-back calls, ``ms``, and by
+     its device time under torch.profiler, ``device_ms``, which the share
+     of the bound is taken from), the plain version and, where one exists,
+     a single PyTorch call computing the same function: L1's calls rotate
+     over inputs that overflow the L2 cache; the forward kernels (A1 on the
      tensor cores, beside scaled_dot_product_attention) at the scoring
      batch of 8, the attention backwards A2 (kv-centric) and A3 (halo) at
      the training micro-batch of 4;
@@ -90,6 +94,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import itertools
 import json
 import os
 import socket
@@ -138,6 +143,7 @@ SEQPAR_TIMEOUT = 600  # seconds: gloo's collectives and the ranks' join
 # SEQPAR_COS in every tensor
 SEQPAR_SHARE_F32, SEQPAR_SHARE_BF16, SEQPAR_COS = 0.1, 1.0, 0.9999
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+L1_COPIES = 4  # inputs L1's timing rotates over (16 MB each at base)
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
             torch.float32: 67e12}  # dense tensor-core / float32 FMA rates
 
@@ -171,6 +177,36 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20):
+    """Mean device time of one ``fn()``: the CUDA time of every kernel
+    that ``iters`` calls launch, summed by torch.profiler, over
+    ``iters``; None when the profiler saw no device time in three tries
+    (now and then one records none). Unlike ``time_ms`` it leaves out the
+    host's time between launches, which is all of a short kernel's time
+    when the host launches slower than the card runs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / iters
+    return None
+
+
+def kernel_times(fn) -> dict:
+    """A kernel's time both ways: ``ms`` by CUDA events around 20
+    back-to-back calls, ``device_ms`` by the profiler over 20 calls."""
+    return dict(ms=time_ms(fn), device_ms=device_ms(fn))
 
 
 def check_close(name, got, want, atol, rtol) -> dict:
@@ -261,31 +297,36 @@ def phase_build():
     tc = tensor_core_kernels(logs, libs)
     line("tensor-core kernels", **{
         k: v for k, v in tc.items()
-        if "bfloat16, 64" in k or "bfloat16, 128" in k})
+        if "bfloat16, 64" in k or "bfloat16, 128" in k or "sgu_" in k})
     bad = [k for k, v in tc.items()
            if v["mma_instructions"] + v["wgmma_instructions"] == 0
-           or (", 64" in k and v["spill_bytes"] != 0)]
+           or ((", 64" in k or "sgu_" in k) and v["spill_bytes"] != 0)]
     bad += [f"{kern}<{dt}, 64> not found in the ptxas logs"
             for kern in ("fwd", "rows", "kv", "halo")
             for dt in ("bfloat16", "float16")
             if not any(f"{kern}_tc_kernel<{dt}, 64" in k for k in tc)]
+    if not any("sgu_mix_tc_kernel<bfloat16>" in k for k in tc):
+        bad.append("sgu_mix_tc_kernel<bfloat16> not found in the ptxas logs")
     if bad:
         raise AssertionError(f"tensor-core kernels missing, without mma "
-                             f"or with spills at d = 64: {bad}")
+                             f"or with spills: {bad}")
     return dict(logs=logs, seconds=seconds, tensor_core_kernels=tc)
 
 
 def tensor_core_kernels(logs: dict, libs: dict) -> dict:
-    """For each tensor-core kernel of the attention (``*_tc_``: the
-    forward and the backwards' passes), keyed "library: kernel<dtype, d,
-    halo>": what ptxas reported
-    (registers, spilled bytes, stack frame) and the count of tensor-core
-    instructions (HMMA, or HGMMA for wgmma) in its machine code, read by
-    cuobjdump -sass from the built library."""
+    """For each tensor-core kernel (``*_tc_kernel``: the attention's
+    forward and backward passes, keyed "library: kernel<dtype, d,
+    halo>", and the SGU tail's mix, "library: sgu_mix_tc_kernel<dtype>"):
+    what ptxas reported (registers, spilled bytes, stack frame) and the
+    count of tensor-core instructions (HMMA, or HGMMA for wgmma) in its
+    machine code, read by cuobjdump -sass from the built library."""
     import re
     import shutil
 
     def short(entry):
+        if "sgu_mix_tc_kernel" in entry:
+            dtype = "bfloat16" if "bfloat16" in entry else "float16"
+            return f"sgu_mix_tc_kernel<{dtype}>"
         m = re.search(r"((?:fwd|rows|kv|halo)_tc_kernel)I"
                       r"(?:6__half|13__nv_bfloat16)Li(\d+)E(?:Lb([01])E)?",
                       entry)
@@ -375,15 +416,19 @@ def phase_kernels(cfg, cfg8k, card: str) -> list:
         name="local_attention_fwd", id="A1", route="cuda",
         source="progen_tpu_torch/csrc/local_attention_fwd.cu",
         replaces="progen_tpu/ops/pallas_attention.py:552",
-        ms=time_ms(lambda: fn(q, k, v, w)), plain_ms=plain_ms,
+        **kernel_times(lambda: fn(q, k, v, w)), plain_ms=plain_ms,
         library_ms=lib_ms, **bnd,
         library_max_abs_err=(lib.float() - want.float()).abs().max().item(),
         shape=[b, h, n, d], window=w, **err,
     ))
     del q, k, v, kp, vp, lib, got, want
 
-    # L1: norm + shift over the residual stream
-    x = randn(b, n, cfg.dim) * 2 + 0.5
+    # L1: norm + shift over the residual stream. Its timed calls rotate
+    # over L1_COPIES inputs, so that each call finds its input out of the
+    # 50 MB L2 cache (the other copies' calls move 3 x 32 MB between two
+    # uses of one), as a layer's input is in the model
+    xs = [randn(b, n, cfg.dim) * 2 + 0.5 for _ in range(L1_COPIES)]
+    x = xs[0]
     scale = torch.rand(cfg.dim, generator=gen, device=dev) + 0.5
     eps = cfg.layer_norm_epsilon
     fn = cuda_layers.norm_shift
@@ -393,14 +438,17 @@ def phase_kernels(cfg, cfg8k, card: str) -> list:
     plain_ms = time_ms(lambda: ref(x, scale, eps, dt))
     err = check_close("L1", got, want, 1e-2, 1e-2)
     bnd = bound_ms(2 * x.numel() * esize + 4 * cfg.dim, 7 * x.numel(), dt)
+    turn = itertools.count()
     rows.append(dict(
         name="norm_shift", id="L1", route="cuda",
         source="progen_tpu_torch/csrc/norm_shift.cu",
         replaces="progen_tpu/ops/pallas_layers.py:193",
-        ms=time_ms(lambda: fn(x, scale, eps, dt)), plain_ms=plain_ms,
-        library_ms=None, **bnd, shape=list(x.shape), **err,
+        **kernel_times(lambda: fn(xs[next(turn) % L1_COPIES], scale, eps,
+                                  dt)),
+        plain_ms=plain_ms, library_ms=None, **bnd, shape=list(x.shape),
+        inputs_rotated=L1_COPIES, **err,
     ))
-    del x, got, want
+    del x, xs, got, want
 
     # L2: SGU tail, weights at ~1/sqrt(n) so an error in the mix shows
     half = cfg.dim * cfg.ff_mult // 2
@@ -415,13 +463,18 @@ def phase_kernels(cfg, cfg8k, card: str) -> list:
     plain_ms = time_ms(lambda: ref(x, gate, wts, bias, scale, eps, dt),
                        iters=3)
     err = check_close("L2", got, want, 2e-2, 2e-2)
+    # the bound of the card's route for this dtype: in bfloat16 the mix's
+    # products run on the tensor cores (W split in two bfloat16 parts is
+    # the kernel's cost, not the function's), in float16 and float32 on the
+    # FMA units at the float32 rate
     nbytes = 3 * x.numel() * esize + 4 * (n * n + n + half)
-    bnd = bound_ms(nbytes, 2 * b * half * n * (n + 1) // 2, torch.float32)
+    bnd = bound_ms(nbytes, 2 * b * half * n * (n + 1) // 2,
+                   dt if dt == torch.bfloat16 else torch.float32)
     rows.append(dict(
         name="sgu_mix_gate", id="L2", route="cuda",
         source="progen_tpu_torch/csrc/sgu_mix_gate.cu",
         replaces="progen_tpu/ops/pallas_layers.py:258",
-        ms=time_ms(lambda: fn(x, gate, wts, bias, scale, eps, dt)),
+        **kernel_times(lambda: fn(x, gate, wts, bias, scale, eps, dt)),
         plain_ms=plain_ms, library_ms=None, **bnd, shape=list(x.shape),
         **err,
     ))
@@ -432,14 +485,16 @@ def phase_kernels(cfg, cfg8k, card: str) -> list:
     fwd, step = per_forward(cfg), per_step(cfg)
     sp = seqpar_per_step(cfg8k)
     for r in rows:
-        # the bound's operations over the kernel's time, and the bound's
-        # share of that time
-        r["tflops"] = r["ops"] / (r["ms"] * 1e-3) / 1e12
-        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        # the bound's operations over the kernel's device time, and the
+        # bound's share of that time (of ms where the profiler saw none)
+        t = r["device_ms"] or r["ms"]
+        r["tflops"] = r["ops"] / (t * 1e-3) / 1e12
+        r["share_of_bound"] = r["bound_ms"] / t
         line(f"kernel {r['id']}", **{k: r[k] for k in (
             "name", "shape", "max_abs_err", "max_rel_err", "atol", "rtol",
-            "worst_over_tolerance", "ms", "plain_ms", "library_ms",
-            "bound_ms", "bound_by", "tflops", "share_of_bound")},
+            "worst_over_tolerance", "ms", "device_ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "tflops",
+            "share_of_bound")},
             launches_per_forward=fwd[r["id"]],
             launches_per_step=step[r["id"]],
             seqpar_launches_per_step_and_rank=sp[r["id"]], card=card)
@@ -498,7 +553,7 @@ def backward_rows(cfg, gen) -> list:
             source=f"progen_tpu_torch/csrc/local_attention_bwd_{impl}.cu",
             replaces="progen_tpu/ops/pallas_attention.py:"
                      + ("652" if impl == "kv" else "683"),
-            ms=time_ms(lambda: fn(q, k, v, do, w)), plain_ms=plain_ms,
+            **kernel_times(lambda: fn(q, k, v, do, w)), plain_ms=plain_ms,
             library_ms=lib_ms, **bnd, shape=[b, h, n, d], window=w,
             errors=dict(zip(("dq", "dk", "dv"), errs)), **err,
         ))
@@ -560,7 +615,8 @@ def halo_rows(cfg, gen) -> list:
     rows = [dict(
         name="local_attention_halo_fwd", id="A4-fwd",
         source="progen_tpu_torch/csrc/local_attention_fwd.cu",
-        ms=time_ms(lambda: ca.local_attention_halo_fwd(q, k, v, hk, hv, w)),
+        **kernel_times(
+            lambda: ca.local_attention_halo_fwd(q, k, v, hk, hv, w)),
         plain_ms=time_ms(lambda: ca.local_attention_halo_fwd_reference(
             q, k, v, hk, hv, w), iters=3),
         library_ms=lib_fwd_ms, **fwd_bnd,
@@ -576,7 +632,7 @@ def halo_rows(cfg, gen) -> list:
         rows.append(dict(
             name=f"local_attention_halo_bwd_{impl}", id=rid,
             source=f"progen_tpu_torch/csrc/local_attention_bwd_{impl}.cu",
-            ms=time_ms(lambda: fn(q, k, v, hk, hv, do, w)),
+            **kernel_times(lambda: fn(q, k, v, hk, hv, do, w)),
             plain_ms=time_ms(lambda: ref(q, k, v, hk, hv, do, w), iters=3),
             library_ms=lib_bwd_ms, **bwd_bnd,
             errors=dict(zip(("dq", "dk", "dv"), errs)),
@@ -1465,6 +1521,7 @@ def main() -> int:
         "name": r["name"], "route": r["route"], "source": r["source"],
         "replaces": r["replaces"], "launches": counts[r["id"]],
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "device_ms": r["device_ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
     } for r in rows]

@@ -49,7 +49,8 @@ class ProGenConfig:
     # fewer products). The CUDA kernel skips the zero blocks either way.
     sgu_block_size: int = 0
 
-    # Params live in float32, compute runs in ``dtype``, logits are float32.
+    # Params live in ``param_dtype``, compute runs in ``dtype``, logits are
+    # float32.
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
     # Kept so TPU configs load; see the module docstring.

@@ -10,7 +10,9 @@ Layouts: a flax ``Dense`` kernel is (in, out) and the port's weight
 q | k | v feature order, each (heads, dim_head), through the transpose.
 A ``scan_layers`` tree stacks the uniform layers under ``layers``; it is
 unstacked here (and stacked on the way back) in numpy. Every leaf is
-copied exactly, so a round trip is bit-equal.
+copied exactly and keeps its dtype (float32, or bfloat16 for a model
+built with ``param_dtype = "bfloat16"``; numpy holds bfloat16 as
+``ml_dtypes.bfloat16``), so a round trip is bit-equal.
 
 The optimizer state crosses the same way: optax's Adam ``count``, ``mu``
 and ``nu`` (``ScaleByAdamState``, wherever it sits in the chain's state)
@@ -69,6 +71,26 @@ def _get(tree: dict, path: tuple):
     for k in path:
         tree = tree[k]
     return np.asarray(tree)
+
+
+def _to_torch(a: np.ndarray) -> torch.Tensor:
+    """A numpy array as a CPU tensor of the same dtype and bits (numpy's
+    bfloat16 goes through its 16-bit pattern, which torch cannot read
+    directly)."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """The inverse of ``_to_torch``."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
 
 
 def _set(tree: dict, path: tuple, value) -> None:
@@ -132,13 +154,12 @@ def _leaves(config: ProGenConfig):
 def flax_params_to_state_dict(tree: dict,
                               config: ProGenConfig) -> dict[str, torch.Tensor]:
     """A flax params tree of numpy arrays (stacked or unrolled) -> the
-    port's state_dict of float32 CPU tensors."""
+    port's state_dict of CPU tensors in the tree's dtypes."""
     tree = _unstack(tree, config)
     sd = {}
     for path, key, transposed in _leaves(config):
         a = _get(tree, path)
-        sd[key] = torch.from_numpy(np.ascontiguousarray(a.T if transposed
-                                                        else a).copy())
+        sd[key] = _to_torch(a.T if transposed else a)
     return sd
 
 
@@ -149,7 +170,7 @@ def state_dict_to_flax_params(sd: dict, config: ProGenConfig,
     config's)."""
     tree: dict = {}
     for path, key, transposed in _leaves(config):
-        a = sd[key].detach().cpu().numpy()
+        a = _to_numpy(sd[key])
         _set(tree, path, np.ascontiguousarray(a.T if transposed else a))
     if config.scan_layers if scan_layers is None else scan_layers:
         tree = _stack(tree, config)
@@ -179,7 +200,7 @@ def flax_opt_state_to_torch(opt_state, config: ProGenConfig) -> dict:
     """An optax optimizer state of numpy arrays (the JAX package's
     ``chain(clip_by_global_norm, adamw)`` state, or a plain ``{"count",
     "mu", "nu"}`` tree) -> ``{"count": int, "mu": state_dict, "nu":
-    state_dict}`` of float32 CPU tensors, for
+    state_dict}`` of CPU tensors in the tree's dtypes, for
     ``MaskedAdamW.load_state_dict``."""
     adam = _adam_node(opt_state)
     return {"count": int(np.asarray(adam["count"])),

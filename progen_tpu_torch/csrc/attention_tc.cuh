@@ -41,13 +41,20 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
+// Each shared-memory primitive takes a 32-bit shared address (one
+// register, where a pointer takes two), or a pointer into shared memory
+// that it converts.
+
 // 16 bytes from global to shared; bytes = 0 fills the 16 with zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(bytes)
                : "memory");
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  cp_async16(smem_u32(dst), src, bytes);
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -57,18 +64,32 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t a) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+      : "r"(a));
 }
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  ldsm_x4(r, smem_u32(p));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, uint32_t a) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+      : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
+  ldsm_x4_t(r, smem_u32(p));
+}
+// Two float32 values from the shared address a (8-byte aligned).
+__device__ __forceinline__ float2 lds_f2(uint32_t a) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(a));
+  return v;
 }
 
 // c (16 x 8, float32) += a (16 x 16) b (16 x 8), both in T.
@@ -165,8 +186,6 @@ __device__ __forceinline__ void store2(T* p, float lo, float hi) {
 
 // The tensor-core kernels read 16 bytes at a time: every pointer must be
 // 16-byte aligned (rows are: D is a multiple of 8).
-inline bool aligned16(const void* p) {
-  return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
+using progen::aligned16;
 
 }  // namespace progen_attn_tc

@@ -1,7 +1,9 @@
-// Shared helpers for the port's CUDA kernels: element conversion and
-// warp reductions. Every kernel reads and writes float32, bfloat16 or
-// float16 and computes in float32.
+// Shared helpers for the port's CUDA kernels: element conversion,
+// 16-byte loads and stores, and warp reductions. Every kernel reads and
+// writes float32, bfloat16 or float16 and computes in float32.
 #pragma once
+
+#include <stdint.h>
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -37,6 +39,31 @@ __device__ __forceinline__ __half from_f32<__half>(float x) {
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));
+}
+
+// 16 bytes of T at p (16-byte aligned), widened: 16 / sizeof(T) values.
+template <typename T>
+__device__ __forceinline__ void load16(const T* p, float* v) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const T* t = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int e = 0; e < (int)(16 / sizeof(T)); ++e) v[e] = to_f32(t[e]);
+}
+
+// 16 / sizeof(T) values rounded to T, stored as 16 bytes at p (aligned).
+template <typename T>
+__device__ __forceinline__ void store16(T* p, const float* v) {
+  uint4 raw;
+  T* t = reinterpret_cast<T*>(&raw);
+#pragma unroll
+  for (int e = 0; e < (int)(16 / sizeof(T)); ++e) t[e] = from_f32<T>(v[e]);
+  *reinterpret_cast<uint4*>(p) = raw;
+}
+
+// True for a pointer on the 16-byte grid (or none), which 16-byte loads
+// and stores need.
+inline bool aligned16(const void* p) {
+  return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

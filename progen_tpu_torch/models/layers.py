@@ -3,9 +3,10 @@
 Counterpart of ``progen_tpu/models/layers.py``: pre-norm local attention
 with token shift, fused q|k|v projection and RoPE on q, k and v; the GLU
 or GELU feed-forward; the spatial gating unit with its learned causal
-(n, n) mix. Parameters live in float32; each block computes in the
-configured dtype (weights, biases and inputs cast to it, as flax's
-``Dense(dtype=...)`` does).
+(n, n) mix. Parameters live in ``config.param_dtype`` (float32 unless a
+config says otherwise), as flax's ``param_dtype``; each block computes
+in the configured dtype (weights, biases and inputs cast to it, as
+flax's ``Dense(dtype=...)`` does).
 
 The full-sequence path runs the kernels through their wrappers
 (``ops/cuda_attention.py``, ``ops/cuda_layers.py``): on the card the
@@ -52,13 +53,16 @@ ATTN_BWD_IMPL = "kv"
 
 class Dense(nn.Module):
     """``y = x W^T + b`` computed in ``dtype``: flax ``Dense(dtype=...)``
-    with the weight stored as (out, in)."""
+    with the weight stored as (out, in) in ``param_dtype``."""
 
     def __init__(self, in_features: int, out_features: int,
-                 bias: bool = True):
+                 bias: bool = True, param_dtype=torch.float32):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(out_features, in_features))
-        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+        self.weight = nn.Parameter(torch.empty(out_features, in_features,
+                                               dtype=param_dtype))
+        self.bias = (nn.Parameter(torch.zeros(out_features,
+                                              dtype=param_dtype))
+                     if bias else None)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         y = F.linear(x.to(dtype), self.weight.to(dtype))
@@ -70,9 +74,10 @@ class Dense(nn.Module):
 class ScaleNorm(nn.Module):
     """Scale-only LayerNorm with flax's arithmetic (``norm_reference``)."""
 
-    def __init__(self, dim: int, epsilon: float):
+    def __init__(self, dim: int, epsilon: float,
+                 param_dtype=torch.float32):
         super().__init__()
-        self.scale = nn.Parameter(torch.ones(dim))
+        self.scale = nn.Parameter(torch.ones(dim, dtype=param_dtype))
         self.epsilon = epsilon
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -133,9 +138,11 @@ class LocalAttentionBlock(nn.Module):
     def __init__(self, c: ProGenConfig):
         super().__init__()
         self.config = c
-        self.norm = ScaleNorm(c.dim, c.layer_norm_epsilon)
-        self.to_qkv = Dense(c.dim, 3 * c.inner_dim, bias=False)
-        self.to_out = Dense(c.inner_dim, c.dim)
+        pd = c.params_dtype
+        self.norm = ScaleNorm(c.dim, c.layer_norm_epsilon, pd)
+        self.to_qkv = Dense(c.dim, 3 * c.inner_dim, bias=False,
+                            param_dtype=pd)
+        self.to_out = Dense(c.inner_dim, c.dim, param_dtype=pd)
 
     def _qkv(self, x, sin, cos):
         c = self.config
@@ -224,11 +231,12 @@ class SpatialGatingUnit(nn.Module):
         super().__init__()
         self.config = c
         half = dim_in // 2
-        n = c.seq_len
-        self.norm = ScaleNorm(half, c.layer_norm_epsilon)
-        self.spatial_weights = nn.Parameter(torch.empty(n, n))
-        self.spatial_biases = nn.Parameter(torch.ones(n, 1))
-        self.proj_out = Dense(half, dim_out)
+        n, pd = c.seq_len, c.params_dtype
+        self.norm = ScaleNorm(half, c.layer_norm_epsilon, pd)
+        # read as float32 by the mix, as the TPU kernel reads them
+        self.spatial_weights = nn.Parameter(torch.empty(n, n, dtype=pd))
+        self.spatial_biases = nn.Parameter(torch.ones(n, 1, dtype=pd))
+        self.proj_out = Dense(half, dim_out, param_dtype=pd)
 
     def forward(self, h, group=None):
         c = self.config
@@ -277,12 +285,13 @@ class FeedForwardBlock(nn.Module):
         self.config = c
         self.glu = glu
         hidden = c.dim * c.ff_mult * (2 if glu else 1)
-        self.norm = ScaleNorm(c.dim, c.layer_norm_epsilon)
-        self.proj_in = Dense(c.dim, hidden)
+        pd = c.params_dtype
+        self.norm = ScaleNorm(c.dim, c.layer_norm_epsilon, pd)
+        self.proj_in = Dense(c.dim, hidden, param_dtype=pd)
         self.sgu = (SpatialGatingUnit(c, hidden, hidden // 2)
                     if spatial_gate else None)
         inner = hidden // 2 if (glu or spatial_gate) else hidden
-        self.proj_out = Dense(inner, c.dim)
+        self.proj_out = Dense(inner, c.dim, param_dtype=pd)
 
     def _activate(self, h):
         h = self.proj_in(h, self.config.compute_dtype)

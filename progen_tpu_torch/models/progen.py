@@ -3,8 +3,9 @@
 Counterpart of ``progen_tpu/models/progen.py``: token embedding ->
 ``depth`` x (local attention + feed-forward) with residual adds, the last
 ``global_mlp_depth`` layers using gMLP feed-forwards (spatial gate, no
-GLU), then a scale-only norm and a linear logits head. Params in float32,
-compute in ``config.dtype``, logits in float32.
+GLU), then a scale-only norm and a linear logits head. Params in
+``config.param_dtype`` (float32 by default), compute in ``config.dtype``,
+logits in float32.
 
 ``forward`` runs the full sequence through the kernels; given a
 ``parallel.Grid`` whose seq axis is above 1, it runs this rank's shard of
@@ -77,7 +78,8 @@ class ProGen(nn.Module):
         dev = resolve_device(device)
         c = config
         self.config = c
-        self.embed = nn.Parameter(torch.empty(c.num_tokens, c.dim))
+        pd = c.params_dtype
+        self.embed = nn.Parameter(torch.empty(c.num_tokens, c.dim, dtype=pd))
         self.attn = nn.ModuleList()
         self.ff = nn.ModuleList()
         for i in range(c.depth):
@@ -86,8 +88,8 @@ class ProGen(nn.Module):
             self.ff.append(FeedForwardBlock(
                 c, glu=(not use_gmlp) and c.ff_glu, spatial_gate=use_gmlp
             ))
-        self.norm = ScaleNorm(c.dim, c.layer_norm_epsilon)
-        self.to_logits = Dense(c.dim, c.num_tokens)
+        self.norm = ScaleNorm(c.dim, c.layer_norm_epsilon, pd)
+        self.to_logits = Dense(c.dim, c.num_tokens, param_dtype=pd)
         if seed is not None:  # None: the caller loads a state dict next
             self.reset_parameters(seed)
         self.to(dev)

@@ -49,9 +49,9 @@ SIGNATURES = {
                                  I, P),
     # x, prev (NULL: none), scale, out, rows, n, d, eps, dtype, stream
     "norm_shift": (P, P, P, P, I, I, I, F, I, P),
-    # x, gate, weights, biases, scale, out, stats, batch, n, row0, rows, d,
-    # eps, dtype, stream
-    "sgu_mix_gate": (P, P, P, P, P, P, P, I, I, I, I, I, F, I, P),
+    # x, gate, weights, biases, scale, out, scratch, batch, n, ldw (the
+    # weights' row stride), row0, rows, d, eps, dtype, stream
+    "sgu_mix_gate": (P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, P),
 }
 KERNELS = tuple(sorted(SIGNATURES))
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -150,6 +150,13 @@ def dtype_code(t: torch.Tensor) -> int:
     except KeyError:
         raise TypeError(f"kernel takes float32, bfloat16 or float16, "
                         f"got {t.dtype}") from None
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address: the kernels copy 16
+    bytes at a time (a view at an odd offset is copied)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def launch(name: str, device: torch.device, *args) -> None:

@@ -276,8 +276,9 @@ def _fwd(q, k, v, window_size, scale, halo_k=None, halo_v=None):
     _check_halo(q, halo_k, halo_v, window_size)
     if scale is None:
         scale = d ** -0.5
-    q, k, v = (_aligned(t) for t in (q, k, v))
-    hk, hv = (None if t is None else _aligned(t) for t in (halo_k, halo_v))
+    q, k, v = (_build.aligned16(t) for t in (q, k, v))
+    hk, hv = (None if t is None else _build.aligned16(t)
+              for t in (halo_k, halo_v))
     out = torch.empty_like(q)
     _build.launch(
         "local_attention_fwd", q.device,
@@ -316,13 +317,6 @@ def local_attention_halo_fwd(q, k, v, halo_k, halo_v, window_size,
 local_attention_halo_fwd.launches = 0
 
 
-def _aligned(t):
-    """``t`` contiguous at a 16-byte aligned address: the kernels copy 16
-    bytes at a time (a view at an odd offset is copied)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _bwd(name, q, k, v, do, window_size, scale, halo_k=None, halo_v=None):
     """Launch A2 or A3 (``name``), without or with a halo. Returns dq and
     the kernel's dk, dv outputs (A3: the float32 scratch, not combined)."""
@@ -331,8 +325,9 @@ def _bwd(name, q, k, v, do, window_size, scale, halo_k=None, halo_v=None):
     if scale is None:
         scale = d ** -0.5
     w, nw = window_size, n // window_size
-    q, k, v, do = (_aligned(t) for t in (q, k, v, do))
-    hk, hv = (None if t is None else _aligned(t) for t in (halo_k, halo_v))
+    q, k, v, do = (_build.aligned16(t) for t in (q, k, v, do))
+    hk, hv = (None if t is None else _build.aligned16(t)
+              for t in (halo_k, halo_v))
     dq = torch.empty_like(q)
     if name == "local_attention_bwd_kv":
         dk, dv = torch.empty_like(k), torch.empty_like(v)

@@ -4,12 +4,15 @@
   _norm_shift_pallas`` (body ``_norm_shift_kernel``): scale-only
   LayerNorm with float32 stats and ``var = max(0, E[x^2] - E[x]^2)``,
   then the first ``d - d//2`` channels shifted down one row (row 0
-  zero). Kernel: ``csrc/norm_shift.cu``.
+  zero). Kernel: ``csrc/norm_shift.cu``, one pass that reads each row
+  once and writes its two halves to their two output rows.
 * ``sgu_mix_gate`` replaces ``pallas_layers.py:_sgu_pallas`` (body
   ``_sgu_kernel``): normalise the gate, round it to the output dtype,
   causal mix ``sum_{j<=m} W[m, j] g[j]`` with float32 W and float32
   accumulation, add the bias, cast, then ``x * gate``. Kernel:
-  ``csrc/sgu_mix_gate.cu``.
+  ``csrc/sgu_mix_gate.cu``: in bfloat16 the mix runs on the tensor cores
+  with W split into two bfloat16 parts (exact products, float32 sums),
+  in float16 and float32 on the FMA units.
 
 Sequence shards (``parallel/``): ``norm_shift`` takes ``prev``, the
 last pre-norm row of the left neighbour's shard, which row 0 then takes
@@ -100,9 +103,9 @@ def _norm_shift_kernel(x, scale, epsilon, out_dtype, prev):
         if prev.shape != (b, 1, d) or prev.dtype != x.dtype:
             raise ValueError(f"prev must be ({b}, 1, {d}) in x's dtype")
         check_same_device(x, prev)
-        prev = prev.contiguous()
+        prev = _build.aligned16(prev)
     check_same_device(x, scale)
-    x = x.contiguous()
+    x = _build.aligned16(x)
     scale = scale.float().contiguous()
     out = torch.empty_like(x)
     _build.launch(
@@ -145,6 +148,16 @@ def norm_shift(x, scale, epsilon, out_dtype, prev=None):
 norm_shift.launches = 0
 
 
+def _sgu_scratch(b, n, d, dtype, device):
+    """The kernel's scratch: in bfloat16 the normalised gate, (b, n, d
+    rounded up to 8) bfloat16 (the tensor-core kernel's B operand); in
+    float16 and float32 the gate's statistics, (b * n, 2) float32."""
+    if dtype == torch.bfloat16:
+        return torch.empty((b, n, -(-d // 8) * 8), dtype=dtype,
+                           device=device)
+    return torch.empty((b * n, 2), dtype=torch.float32, device=device)
+
+
 def _sgu_mix_gate_kernel(x, gate, weights, biases, scale, epsilon,
                          out_dtype, row_offset):
     if gate.ndim != 3 or x.ndim != 3 or x.shape[::2] != gate.shape[::2]:
@@ -162,17 +175,23 @@ def _sgu_mix_gate_kernel(x, gate, weights, biases, scale, epsilon,
     if not (x.dtype == gate.dtype == out_dtype):
         raise TypeError("kernel takes x and gate in the output dtype")
     check_same_device(x, gate, weights, biases, scale)
-    x, gate = x.contiguous(), gate.contiguous()
-    weights = weights.float().contiguous()
+    x, gate = _build.aligned16(x), _build.aligned16(gate)
+    weights = weights.float()
+    if x.dtype == torch.bfloat16 and n % 4:
+        # the tensor-core mix reads W's rows 16 bytes at a time: pad them
+        # with zero columns to a multiple of 4
+        weights = torch.nn.functional.pad(weights, (0, -n % 4))
+    weights = _build.aligned16(weights)
     biases = biases.float().contiguous()
     scale = scale.float().contiguous()
     out = torch.empty_like(x)
-    stats = torch.empty((b * n, 2), dtype=torch.float32, device=x.device)
+    scratch = _sgu_scratch(b, n, d, x.dtype, x.device)
     _build.launch(
         "sgu_mix_gate", x.device,
         x.data_ptr(), gate.data_ptr(), weights.data_ptr(),
         biases.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        stats.data_ptr(), b, n, row_offset, rows, d, float(epsilon),
+        scratch.data_ptr(), b, n, weights.stride(0), row_offset, rows, d,
+        float(epsilon),
         _build.dtype_code(x),
     )
     sgu_mix_gate.launches += 1

@@ -16,9 +16,13 @@ Same semantics as the JAX package's ``sample_fast``:
 RNG rule. Torch cannot reproduce JAX's threefry streams, so the port has
 its own: row i of ``sample_fast_batched(seed, ...)`` equals
 ``sample_fast(row_seed(seed, i), ...)`` on that prime, and draw t of a
-row is a function of that row's seed and t alone (an explicit
+row is a function of that row's seed and t alone (a CPU
 ``torch.Generator`` seeded with ``draw_seed(row_seed, t)``). A replay can
-therefore resume a stream at any draw. ``noise=`` replaces the draws
+therefore resume a stream at any draw. The noise is drawn and
+transformed on the CPU whatever device the model is on, and copied to
+the logits' device once a step, so a seed gives the same noise on the
+CPU and on the card (the card's own generator, Philox, would give other
+numbers than the CPU's Mersenne Twister). ``noise=`` replaces the draws
 (tests hand in the JAX package's noise through it).
 """
 
@@ -56,8 +60,9 @@ def draw_seed(seed: int, t: int) -> int:
                   ^ int(t)) >> 1
 
 
-def gumbel_noise(gen: torch.Generator, shape, device) -> torch.Tensor:
-    u = torch.rand(shape, generator=gen, device=device)
+def gumbel_noise(gen: torch.Generator, shape) -> torch.Tensor:
+    """float32 Gumbel noise from the CPU generator ``gen``, on the CPU."""
+    u = torch.rand(shape, generator=gen)
     return -torch.log(-torch.log(u + EPS) + EPS)
 
 
@@ -136,15 +141,18 @@ def _prepare_seq(config, prime, length: int, add_bos: bool):
     return np.pad(prime, widths), start
 
 
-def _seeded_draws(row_seeds, device) -> Callable:
-    gen = torch.Generator(device=device)
+def _seeded_draws(row_seeds) -> Callable:
+    """draw(t, logit): draw t of every row, (rows, vocab), on logit's
+    device. Each row's noise comes from a CPU generator seeded with
+    ``draw_seed(row_seed, t)``, whatever that device is."""
+    gen = torch.Generator()  # the CPU's, on every device
 
     def draw(t: int, logit: torch.Tensor) -> torch.Tensor:
         rows = []
         for s in row_seeds:
             gen.manual_seed(draw_seed(s, t))
-            rows.append(gumbel_noise(gen, logit.shape[-1:], device))
-        return torch.stack(rows)
+            rows.append(gumbel_noise(gen, logit.shape[-1:]))
+        return torch.stack(rows).to(logit.device)
 
     return draw
 
@@ -175,7 +183,7 @@ def _sample(row_seeds, model, primes, length, top_k, add_bos, temperature,
     seqs, start = _prepare_seq(model.config, primes, length, add_bos)
     seqs = torch.from_numpy(seqs).to(dev)
     if noise is None:
-        draw = _seeded_draws(row_seeds, dev)
+        draw = _seeded_draws(row_seeds)
     else:
         def draw(t, logit):
             return torch.as_tensor(noise(t), dtype=logit.dtype,

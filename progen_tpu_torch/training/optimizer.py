@@ -17,7 +17,8 @@ module follows optax:
   has lr 0 (``LambdaLR`` counts otherwise).
 
 ``MaskedAdamW`` holds its moments and its count and updates them and the
-parameters in place.
+parameters in place. The moments take the parameters' dtype, as optax's
+``zeros_like`` gives them: bfloat16 parameters get bfloat16 moments.
 """
 
 from __future__ import annotations

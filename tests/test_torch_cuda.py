@@ -20,7 +20,10 @@ version takes them. In bfloat16 and float16 the forward and backward
 kernels run on the tensor cores: the backwards round P and dS to the
 input dtype before the products that take them, the forward carries P
 into P·V as two input-dtype parts; the plain version keeps them in
-float32, and the same 1e-2 tolerance holds.
+float32, and the same 1e-2 tolerance holds. The SGU tail in bfloat16
+runs its mix on the tensor cores with the float32 weights split into two
+bfloat16 parts (16 of their 24 bits); in float16 and float32 on the FMA
+units.
 """
 
 import pytest
@@ -28,6 +31,7 @@ import torch
 
 from progen_tpu_torch.models import layers
 from progen_tpu_torch.ops import cuda_attention, cuda_layers
+from torch_sgu_split import bf16_ulp, split_mix
 
 pytestmark = pytest.mark.cuda
 
@@ -215,10 +219,12 @@ def test_layers_carry_grad_fn(dev):
             _check(gg, ww, *BWD_TOL[torch.float32])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,n,d", [(2, 32, 33), (2, 64, 512),
-                                   (8, 1024, 1024), (1, 16, 1792),
-                                   (1, 8, 2048)])
+NORM_SHIFT_SHAPES = [(2, 32, 33), (2, 64, 512), (8, 1024, 1024),
+                     (1, 16, 1792), (1, 8, 2048)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,n,d", NORM_SHIFT_SHAPES)
 def test_norm_shift(dev, dtype, b, n, d):
     gen = torch.Generator(device=dev).manual_seed(d)
     x = _randn(gen, b, n, d, dtype=dtype, dev=dev) * 3 + 1
@@ -229,9 +235,46 @@ def test_norm_shift(dev, dtype, b, n, d):
     assert torch.all(got[:, 0, :d - d // 2] == 0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,n,d", NORM_SHIFT_SHAPES + [(2, 16, 24)])
+def test_norm_shift_with_prev(dev, dtype, b, n, d):
+    """L1 with a previous row for row 0 of every sequence, at the widths
+    of the shipped configs (512, 1024, 1792, 2048: 16-byte vectors) and
+    at widths that take one element a lane (33) or whose split cuts a
+    vector (24: split 12)."""
+    gen = torch.Generator(device=dev).manual_seed(d + 1)
+    x = _randn(gen, b, n, d, dtype=dtype, dev=dev) * 3 + 1
+    prev = _randn(gen, b, 1, d, dtype=dtype, dev=dev) * 3 + 1
+    scale = torch.rand(d, generator=gen, device=dev) + 0.5
+    before = cuda_layers.norm_shift.launches
+    got = cuda_layers.norm_shift(x, scale, 1e-5, dtype, prev)
+    assert cuda_layers.norm_shift.launches == before + 1
+    want = cuda_layers.norm_shift_reference(x, scale, 1e-5, dtype, prev)
+    _check(got, want, *TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_norm_shift_takes_any_alignment(dev, dtype):
+    """A view at an odd offset (rows off the 16-byte grid) is realigned
+    by the wrapper: its output is its aligned copy's, bit for bit, and
+    agrees with the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    b, n, d = 2, 64, 512
+    flat = _randn(gen, b * n * d + 1, dtype=dtype, dev=dev) * 3 + 1
+    x = flat[1:].view(b, n, d)
+    scale = torch.rand(d, generator=gen, device=dev) + 0.5
+    got = cuda_layers.norm_shift(x, scale, 1e-5, dtype)
+    aligned = cuda_layers.norm_shift(x.clone(), scale, 1e-5, dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got, aligned)
+    _check(got, cuda_layers.norm_shift_reference(x, scale, 1e-5, dtype),
+           *TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,n,d", [(2, 32, 24), (1, 100, 70),
-                                   (2, 256, 128), (2, 1024, 2048)])
+                                   (2, 256, 128), (2, 1024, 2048),
+                                   (1, 33, 16), (8, 1024, 2048)])
 def test_sgu_mix_gate(dev, dtype, b, n, d):
     gen = torch.Generator(device=dev).manual_seed(n)
     x, gate = (_randn(gen, b, n, d, dtype=dtype, dev=dev) for _ in range(2))
@@ -244,6 +287,108 @@ def test_sgu_mix_gate(dev, dtype, b, n, d):
     atol, rtol = TOL[dtype]
     _check(got, want, 2 * atol if dtype != torch.float32 else atol,
            2 * rtol if dtype != torch.float32 else rtol)
+
+
+def _kernel_names(fn) -> set:
+    """The names of the CUDA kernels that ``fn()`` launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sgu_mix_gate_takes_tensor_cores_in_bfloat16(dev, dtype):
+    """A bfloat16 call launches the gate pass and the tensor-core mix
+    (sgu_gate_norm, sgu_mix_tc_kernel); float16 and float32 the FMA
+    kernel (sgu_gate_stats, sgu_mix_kernel). Each call counts once."""
+    b, n, d = 2, 256, 128
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x, gate = (_randn(gen, b, n, d, dtype=dtype, dev=dev) for _ in range(2))
+    w = _randn(gen, n, n, dtype=torch.float32, dev=dev) / n ** 0.5
+    bias = _randn(gen, n, 1, dtype=torch.float32, dev=dev)
+    scale = torch.rand(d, generator=gen, device=dev) + 0.5
+    fn = cuda_layers.sgu_mix_gate
+    fn(x, gate, w, bias, scale, 1e-5, dtype)  # built and loaded
+    before = fn.launches
+    names = " ".join(_kernel_names(
+        lambda: fn(x, gate, w, bias, scale, 1e-5, dtype)))
+    assert fn.launches == before + 1
+    tc = dtype == torch.bfloat16
+    assert ("sgu_mix_tc_kernel" in names) == tc, names
+    assert ("sgu_gate_norm" in names) == tc, names
+    assert ("sgu_mix_kernel" in names) == (not tc), names
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sgu_mix_gate_is_deterministic(dev, dtype):
+    """L2 launched twice on the same inputs gives bit-equal outputs (the
+    shard identity needs them so)."""
+    b, n, d = 2, 1024, 512
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x, gate = (_randn(gen, b, n, d, dtype=dtype, dev=dev) for _ in range(2))
+    w = _randn(gen, n, n, dtype=torch.float32, dev=dev) / n ** 0.5
+    bias = _randn(gen, n, 1, dtype=torch.float32, dev=dev)
+    scale = torch.rand(d, generator=gen, device=dev) + 0.5
+    runs = [cuda_layers.sgu_mix_gate(x, gate, w, bias, scale, 1e-5, dtype)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(*runs)
+
+
+
+def test_sgu_mix_tc_carries_w_lo(dev):
+    """The bfloat16 mix adds W_lo g as well as W_hi g. With x = 1, no
+    bias, scale 1 and each gate row half +1 and half -1 (mean 0 and
+    variance 1 in any order of summation, so the kernel's gate pass and
+    the plain norm give the same g = +-1), the output is bf16(mix). The
+    kernel is held elementwise within one bfloat16 ulp (plus 2^-16 for
+    outputs near zero, where the float32 sums' order shows) of the split
+    mix written out on the CPU (tests/torch_sgu_split.py), and its mean
+    distance from the exact mix, in ulps, is under a quarter of that of
+    the mix of bf16(W) alone (about 0.25 against 2.8 written out: a mix
+    of 1024 terms loses to W's rounding what its cancellation wins)."""
+    b, n, d = 2, 1024, 256
+    gen = torch.Generator().manual_seed(14)
+    signs = torch.tensor([1.0, -1.0]).repeat_interleave(d // 2)
+    gate = torch.stack([signs[torch.randperm(d, generator=gen)]
+                        for _ in range(b * n)]).reshape(b, n, d).bfloat16()
+    x = torch.ones(b, n, d, dtype=torch.bfloat16)
+    w = torch.randn(n, n, generator=gen) / n ** 0.5
+    bias, scale = torch.zeros(n, 1), torch.ones(d)
+    args = (x, gate, w, bias, scale)
+    got = cuda_layers.sgu_mix_gate(*(t.to(dev) for t in args), 1e-5,
+                                   torch.bfloat16).cpu().float()
+    split, _ = split_mix(*args, 1e-5)
+    once, _ = split_mix(*args, 1e-5, split=False)
+    split, once = split.float(), once.float()
+    over = (got - split).abs() - bf16_ulp(split) - 2.0 ** -16
+    assert not bool((over > 0).any()), (int((over > 0).sum()),
+                                        float(over.max()))
+    g = cuda_layers.norm_reference(gate, scale, 1e-5, torch.bfloat16)
+    exact = torch.tril(w).double() @ g.double()
+
+    def dist(t):
+        return float(((t - exact).abs() / bf16_ulp(exact)).mean())
+
+    assert dist(got) * 4 < dist(once), (dist(got), dist(once))
+
+
+def test_sampling_noise_is_the_cpus(dev):
+    """Draw t of a row is bit-equal on the CPU and on the card: the noise
+    is drawn by a CPU generator and copied to the logits' device."""
+    from progen_tpu_torch import sampling
+
+    seeds = [sampling.row_seed(7, i) for i in range(3)]
+    draw = sampling._seeded_draws(seeds)
+    for t in (0, 1, 100):
+        card = draw(t, torch.zeros(3, 256, device=dev))
+        assert card.device.type == "cuda"
+        assert torch.equal(card.cpu(), draw(t, torch.zeros(3, 256)))
 
 
 @pytest.mark.parametrize("impl", ["kv", "halo"])
@@ -313,7 +458,7 @@ def test_shard_identity(dev, impl, dtype):
         _check(g, r, *BWD_TOL[dtype])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_norm_shift_prev_row(dev, dtype):
     """L1 over two shards, the second with the first's last row as its
     previous row, equals L1 over the whole sequence bit for bit."""
@@ -330,8 +475,9 @@ def test_norm_shift_prev_row(dev, dtype):
         x[:, 32:], scale, 1e-5, dtype, x[:, 31:32]), *TOL[dtype])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("row0,rows", [(0, 256), (256, 256), (100, 60)])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("row0,rows", [(0, 256), (256, 256), (100, 60),
+                                       (5, 300)])
 def test_sgu_mix_gate_rows(dev, dtype, row0, rows):
     """L2's rows [row0, row0 + rows) against the whole gate equal those
     rows of the whole mix bit for bit, and the plain version."""

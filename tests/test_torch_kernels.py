@@ -28,6 +28,7 @@ from progen_tpu.ops.pallas_attention import pallas_local_attention
 from progen_tpu.ops.pallas_layers import fused_norm_shift, fused_sgu_mix_gate
 from progen_tpu_torch.ops import cuda_attention, cuda_layers
 from progen_tpu_torch.ops.dispatch import check_same_device, takes_kernel
+from torch_sgu_split import split_mix
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -426,6 +427,47 @@ class TestTensorCoreRounding:
             np.testing.assert_allclose(
                 t.numpy(), np.asarray(j.astype(jnp.float32)), atol=1e-2,
                 rtol=1e-2)
+
+
+class TestSplitWeightMix:
+    """L2's bfloat16 kernel on the card's tensor cores: the gate
+    normalised and rounded to bfloat16 (as the TPU kernel rounds it), W
+    zeroed above the diagonal and split into two bfloat16 parts, hi =
+    bf16(W) and lo = bf16(W - hi), and the mix summed in float32 over
+    tiles of 32 j from j = 0, each tile adding hi·g and then lo·g (every
+    product of two bfloat16 values is exact in float32). Written out in
+    tests/torch_sgu_split.py (which the card's test holds the kernel
+    against too) and held here against the TPU kernel in interpret mode,
+    whole and for a
+    shard's rows at an offset, at the bfloat16 tolerance of this file
+    (two ulps of values near 1)."""
+
+    @pytest.mark.parametrize("row0,rows", [(0, 96), (40, 30)])
+    def test_split_w_within_one_ulp(self, row0, rows):
+        rng = np.random.default_rng(32)
+        n, d = 96, 24
+        x, gate = (rng.standard_normal((2, n, d), np.float32)
+                   for _ in range(2))
+        # weights at 1/sqrt(n), so the mix is not hidden under the bias
+        w = (rng.standard_normal((n, n)) / np.sqrt(n)).astype(np.float32)
+        b = rng.standard_normal((n, 1)).astype(np.float32)
+        scale = rng.uniform(0.5, 1.5, d).astype(np.float32)
+        (jx, tx), (jg, tg) = _pair(x, "bfloat16"), _pair(gate, "bfloat16")
+        want = fused_sgu_mix_gate(jx, jg, jnp.asarray(w), jnp.asarray(b),
+                                  jnp.asarray(scale), EPS, 32, True,
+                                  "bfloat16")[:, row0:row0 + rows]
+        sl = slice(row0, row0 + rows)
+        args = (tx[:, sl], tg, torch.from_numpy(w[sl]),
+                torch.from_numpy(b[sl]), torch.from_numpy(scale), EPS, row0)
+        got, mix = split_mix(*args)
+        _, once = split_mix(*args, split=False)
+        g = cuda_layers.norm_reference(tg, torch.from_numpy(scale), EPS,
+                                       torch.bfloat16).float()
+        exact = torch.tril(torch.from_numpy(w))[sl] @ g
+        # the split carries W about 8 bits further than one rounding
+        assert (mix - exact).abs().max() * 16 < (once - exact).abs().max()
+        assert got.dtype == torch.bfloat16
+        _close(want, got, "bfloat16")
 
 
 class TestDispatch:

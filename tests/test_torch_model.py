@@ -272,6 +272,25 @@ class TestSampling:
         assert tsampling.row_seed(5, 0) != tsampling.row_seed(5, 1)
         assert 0 <= tsampling.row_seed(2 ** 70, 1) < 2 ** 63
 
+    def test_noise_comes_from_a_cpu_generator(self):
+        """Draw t of a row is the CPU generator's float32 Gumbel noise,
+        seeded with draw_seed(row_seed, t), whatever device the logits lie
+        on: the draw is made on the CPU and copied to their device
+        (tests/test_torch_cuda.py compares the card's copy bit for
+        bit)."""
+        seeds = [tsampling.row_seed(3, i) for i in range(2)]
+        draw = tsampling._seeded_draws(seeds)
+        got = draw(5, torch.zeros(2, 32))
+        assert got.dtype == torch.float32 and got.shape == (2, 32)
+        for row, s in zip(got, seeds):
+            gen = torch.Generator().manual_seed(tsampling.draw_seed(s, 5))
+            u = torch.rand(32, generator=gen)
+            assert torch.equal(row, -torch.log(-torch.log(u + 1e-20)
+                                               + 1e-20))
+        other = draw(5, torch.zeros(2, 32, device="meta"))
+        assert other.device.type == "meta" and other.shape == (2, 32)
+        assert torch.equal(draw(5, torch.zeros(2, 32)), got)
+
     def test_truncates_after_second_zero(self, setup):
         _, _, pm = setup["float32"]
         vocab = 32
