@@ -71,7 +71,27 @@ Phases, one line each:
      process's, float32 against float32 and bfloat16 against bfloat16
      (the rule by SEQPAR_*).
      Two ranks share one card here (NCCL puts one rank on a card), so
-     their step time is a record of the path, not a scaling number.
+     their step time is a record of the path, not a scaling number;
+  8. cli, the entry points a user runs, called in this process through
+     their ``run(argv)`` at base.toml with --mixed_precision, in
+     build/chip_smoke_cli/ (removed afterwards): generate_data writes
+     TFRecord shards from a synthetic FASTA (512 proteins, Uniref50-style
+     headers, lengths 64..1000, from a numpy seed); cli.train takes 4
+     steps (batch 4 x 4, checkpoint and validate every 2, a sample at step
+     0), then resumes for 2 more; cli.eval walks the valid split;
+     cli.sample decodes one sequence. With the launch counts set to 0
+     just before and read just after, every step must launch A1 192, A2
+     96, L1 384 and L2 16 times and each eval forward A1 24, L1 48, L2 2.
+     Checks: every loss finite; the first run's final checkpoint restores
+     bit for bit (parameters, moments, count, step, cursor, model
+     config); the resumed run's first batch is the records after the
+     cursor (read apart from the iterator); cli.sample's tokens equal
+     sample_fast's with the same seed on the restored model; one byte
+     flipped in the newest checkpoint's params.pt makes the walk
+     quarantine it and take the one before. It prints each step's ms and
+     tokens/s beside phase 5's, the checkpoint's bytes and save and
+     restore seconds, the padded share of the synthetic batches, the
+     eval loss and the phase's seconds.
 
 Phase 2 also holds A4 (forward and both backwards, with a halo) against
 its plain versions at long8k's shard shapes with 2 shards, and runs the
@@ -1435,6 +1455,260 @@ def phase_seqpar(cfg, card: str) -> dict:
                                for k in ranks[0]["bf16"]["launches"]})
 
 
+# phase 8: the entry points a user runs, at base.toml in bfloat16
+CLI_SEQS, CLI_MIN_LEN, CLI_MAX_LEN = 512, 64, 1000  # the synthetic FASTA
+CLI_FRESH_STEPS, CLI_RESUME_STEPS = 4, 2
+CLI_PRIME = "[tax=Homo sapiens] #"
+CLI_SEED = 0  # the FASTA's, the ETL's, the model's; the sample's + 7
+TAXA = [("Homo sapiens", 9606), ("Mus musculus", 10090),
+        ("Escherichia coli", 562), ("Saccharomyces cerevisiae", 4932),
+        ("Arabidopsis thaliana", 3702)]
+DATA_TOML = """read_from = "{fasta}"
+write_to = "{out}"
+num_samples = {n}
+max_seq_len = 1024
+prob_invert_seq_annotation = 0.5
+fraction_valid_data = 0.1
+num_sequences_per_file = 256
+sort_annotations = true
+"""
+
+
+def write_fasta(path: Path, seed: int) -> None:
+    """CLI_SEQS proteins with Uniref50-style headers, lengths drawn from
+    CLI_MIN_LEN..CLI_MAX_LEN, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    aas = np.array(list("ACDEFGHIKLMNPQRSTVWY"))
+    with path.open("w") as f:
+        for i in range(CLI_SEQS):
+            n = int(rng.integers(CLI_MIN_LEN, CLI_MAX_LEN + 1))
+            seq = "".join(rng.choice(aas, n))
+            tax, taxid = TAXA[int(rng.integers(len(TAXA)))]
+            f.write(f">UniRef50_A0A{i:07d} Uncharacterized protein "
+                    f"n={int(rng.integers(1, 40))} Tax={tax} TaxID={taxid} "
+                    f"RepID=A0A{i:07d}_9EUKA\n")
+            for k in range(0, n, 60):
+                f.write(seq[k:k + 60] + "\n")
+
+
+def train_records(data: Path) -> list:
+    """The train split's records in the order of the shard index, read
+    shard by shard apart from the iterator under test."""
+    from progen_tpu_torch.data.tfrecord import read_tfrecords
+
+    files = sorted(data.glob("*.train.tfrecord.gz"),
+                   key=lambda p: int(p.name.split(".")[0]))
+    return [r for f in files for r in read_tfrecords(str(f))]
+
+
+def padded_share(records, seq_len: int) -> float:
+    """Share of the (records x seq_len) token positions that are padding."""
+    real = sum(min(len(r), seq_len) for r in records)
+    return 1 - real / (len(records) * seq_len)
+
+
+def counted_steps(make_step, counts: list):
+    """make_train_step wrapped to record each step's launches in
+    ``counts``."""
+    def make():
+        step = make_step()
+
+        def counted(state, batch):
+            before = launch_counts()
+            out = step(state, batch)
+            after = launch_counts()
+            counts.append({k: after[k] - before[k] for k in after})
+            return out
+        return counted
+    return make
+
+
+def check_restore(run: dict, get_last) -> dict:
+    """The first run's final checkpoint, restored, against the state it
+    saved: parameters, moments, count, step, cursor and model config,
+    bit for bit. Returns the restore seconds and the checkpoint's bytes."""
+    t = time.perf_counter()
+    pkg = get_last(device="cuda")
+    restore_s = time.perf_counter() - t
+    state, got = run["state"], pkg.state
+    bad = [k for k, v in state.model.state_dict().items()
+           if v.dtype != got["params"][k].dtype
+           or not torch.equal(v, got["params"][k])]
+    for name in ("mu", "nu"):
+        bad += [f"{name}:{k}" for k, v in getattr(state.optimizer, name)
+                .items() if not torch.equal(v, got["optimizer"][name][k])]
+    meta = (pkg.path, pkg.next_seq_index, pkg.model_config,
+            got["optimizer"]["count"], got["step"])
+    want = (run["saves"][-1]["path"], run["next_seq_index"],
+            run["config"].to_dict(), state.optimizer.count, state.step)
+    if bad or meta != want:
+        raise AssertionError(f"restore differs: tensors {bad[:5]}, "
+                             f"{meta[:2] + meta[3:]} vs {want[:2] + want[3:]}"
+                             f", config equal {meta[2] == want[2]}")
+    nbytes = sum(f.stat().st_size for f in Path(pkg.path).iterdir())
+    return dict(restore_s=restore_s, checkpoint_bytes=nbytes)
+
+
+def check_quarantine(ck: Path) -> dict:
+    """Flip one byte in the middle of the newest checkpoint's params.pt:
+    a fresh walk must quarantine it and take the one before."""
+    from progen_tpu_torch.checkpoint import CORRUPT_SUFFIX, get_checkpoint_fns
+
+    names = sorted(p for p in ck.iterdir() if p.name.startswith("ckpt_")
+                   and p.name[5:].isdigit())
+    newest, before = names[-1], names[-2]
+    with (newest / "params.pt").open("r+b") as f:
+        f.seek(f.seek(0, os.SEEK_END) // 2)
+        byte = f.read(1)[0]
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([byte ^ 0x10]))
+    got = get_checkpoint_fns(str(ck))[1].peek()
+    quarantined = newest.with_name(newest.name + CORRUPT_SUFFIX)
+    if got is None or got.path != str(before) or not quarantined.is_dir():
+        raise AssertionError(f"corrupt {newest.name}: walk chose "
+                             f"{got and got.path}, quarantined "
+                             f"{quarantined.is_dir()}")
+    return dict(quarantined=quarantined.name, fell_back_to=before.name)
+
+
+def phase_cli(cfg, train: dict) -> dict:
+    """Phase 8: the port's CLIs in this process, at base.toml with
+    --mixed_precision, in a directory under build/ that is removed
+    afterwards: generate_data on a synthetic FASTA; train 4 steps
+    (batch 4 x 4, checkpoint and validate every 2, a sample at step 0);
+    train again, resuming, 2 steps; eval on the valid split; sample one
+    sequence. With the launch counts set to 0 just before and read just
+    after; every step must launch per_step(cfg)."""
+    import shutil
+
+    from progen_tpu_torch import ProGen, ProGenConfig
+    from progen_tpu_torch.checkpoint import get_checkpoint_fns
+    from progen_tpu_torch.cli import eval as cli_eval
+    from progen_tpu_torch.cli import generate_data
+    from progen_tpu_torch.cli import sample as cli_sample
+    from progen_tpu_torch.cli import train as cli_train
+    from progen_tpu_torch.data.dataset import collate
+    from progen_tpu_torch.data.tokenizer import encode_tokens
+    from progen_tpu_torch.sampling import sample_fast
+
+    t_phase = time.perf_counter()
+    work = REPO / "build" / "chip_smoke_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "data_cfg").mkdir(parents=True)
+    try:
+        fasta, data, ck = work / "uniref50_synthetic.fasta", work / "data", \
+            work / "ckpts"
+        write_fasta(fasta, CLI_SEED)
+        (work / "data_cfg" / "synthetic.toml").write_text(DATA_TOML.format(
+            fasta=fasta, out=data, n=CLI_SEQS))
+        t = time.perf_counter()
+        shards = generate_data.run(["--data_dir", str(work / "data_cfg"),
+                                    "--name", "synthetic",
+                                    "--seed", str(CLI_SEED)])
+        etl_s = time.perf_counter() - t
+        args = ["--device", "cuda", "--wandb_off", "--mixed_precision",
+                "--config_path", str(REPO / "configs" / "model"),
+                "--model_name", "base", "--data_path", str(data),
+                "--checkpoint_path", str(ck), "--batch_size",
+                str(TRAIN_MICRO), "--grad_accum_every", str(TRAIN_ACCUM),
+                "--checkpoint_every", "2", "--validate_every", "2",
+                "--sample_every", "1000", "--checkpoint_keep_n", "2",
+                "--seed", str(CLI_SEED)]
+        step_counts = []
+        reset_counts()
+        with mock.patch.object(cli_train, "make_train_step", counted_steps(
+                cli_train.make_train_step, step_counts)):
+            fresh = cli_train.run(args + ["--num_steps",
+                                          str(CLI_FRESH_STEPS)])
+            _, get_last, _ = get_checkpoint_fns(str(ck))
+            restore = check_restore(fresh, get_last)
+            del fresh["state"]  # its 4.8 GB of parameters and moments
+            resumed = cli_train.run(args + ["--num_steps",
+                                            str(CLI_RESUME_STEPS)])
+            del resumed["state"]
+        evaluated = cli_eval.run(["--device", "cuda", "--checkpoint_path",
+                                  str(ck), "--data_path", str(data),
+                                  "--split", "valid"])
+        sampled = cli_sample.run(["--device", "cuda", "--checkpoint_path",
+                                  str(ck), "--seed", str(CLI_SEED + 7),
+                                  "--prime", CLI_PRIME])
+        counts = launch_counts()
+
+        bad = []
+        steps = fresh["steps"] + resumed["steps"]
+        for st in steps:
+            if not (np.isfinite(st["loss"]) and np.isfinite(st["grad_norm"])
+                    and st["skipped"] == 0):
+                bad.append(f"step not finite or skipped: {st}")
+        if len(steps) != CLI_FRESH_STEPS + CLI_RESUME_STEPS:
+            bad.append(f"{len(steps)} steps")
+        if any(c != per_step(cfg) for c in step_counts):
+            bad.append(f"launches per step {step_counts}")
+        n_evals = (len(fresh["valid_losses"]) + len(resumed["valid_losses"])
+                   + evaluated["batches"])
+        want = {k: len(steps) * v + n_evals * per_forward(cfg)[k]
+                for k, v in per_step(cfg).items()}
+        if counts != want:
+            bad.append(f"the phase launched {counts}, not {want}")
+        records = train_records(data)
+        cursor = CLI_FRESH_STEPS * TRAIN_ACCUM * TRAIN_MICRO
+        if resumed["start_seq_index"] != cursor:
+            bad.append(f"resumed at {resumed['start_seq_index']}")
+        after = collate(records[cursor:cursor + TRAIN_ACCUM * TRAIN_MICRO],
+                        cfg.seq_len).reshape(TRAIN_ACCUM, TRAIN_MICRO, -1)
+        if not np.array_equal(resumed["first_batch"].numpy(), after):
+            bad.append("the resumed run's first batch is not the records "
+                       "after the cursor")
+        if not np.isfinite(evaluated["loss"]):
+            bad.append(f"eval loss {evaluated['loss']}")
+
+        pkg = get_checkpoint_fns(str(ck))[1].restore_params(device="cuda")
+        model = ProGen(ProGenConfig.from_dict(pkg.model_config),
+                       device="cuda", seed=None)
+        model.load_state_dict(pkg.state)
+        del pkg
+        want_tokens = sample_fast(CLI_SEED + 7, model.eval(),
+                                  encode_tokens(CLI_PRIME), cfg.seq_len,
+                                  top_k=25, add_bos=True, device="cuda")
+        del model
+        if not torch.equal(sampled["tokens"], want_tokens):
+            diff = int((sampled["tokens"] != want_tokens).sum())
+            bad.append(f"cli.sample differs from sample_fast at {diff} "
+                       "positions")
+        quarantine = check_quarantine(ck)
+        if bad:
+            raise AssertionError("cli: " + "; ".join(bad))
+
+        trained = records[:cursor + len(resumed["steps"]) * TRAIN_ACCUM
+                          * TRAIN_MICRO]
+        saves = [s["seconds"] for s in fresh["saves"] + resumed["saves"]]
+        out = dict(
+            shards=len(shards), etl_s=etl_s, train_records=len(records),
+            valid_sequences=evaluated["sequences"],
+            steps=[{k: st[k] for k in ("step", "loss", "grad_norm", "ms",
+                                       "tokens_per_s")} for st in steps],
+            step_ms=float(np.mean([st["ms"] for st in steps[1:]])),
+            tokens_per_s=float(np.mean([st["tokens_per_s"]
+                                        for st in steps[1:]])),
+            train_phase_step_ms=train.get("step_ms"),
+            train_phase_tokens_per_s=train.get("tokens_per_s"),
+            launches=counts, launches_per_step=per_step(cfg),
+            evals=n_evals, **restore, save_s=saves,
+            valid_losses=[v["loss"] for v in fresh["valid_losses"]
+                          + resumed["valid_losses"]],
+            padded_share_trained=padded_share(trained, cfg.seq_len),
+            padded_share_train_split=padded_share(records, cfg.seq_len),
+            eval_loss=evaluated["loss"], eval_perplexity=evaluated["perplexity"],
+            sample_tokens_equal=True, sample_text=sampled["texts"][0][:60],
+            quarantine=quarantine, seconds=time.perf_counter() - t_phase)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    line("cli", **{k: v for k, v in out.items() if k != "steps"})
+    for st in out["steps"]:
+        line(f"cli step {st['step']}", **st)
+    return out
+
+
 def check_training(run: dict) -> None:
     """Phase 6c: every loss and grad norm finite, no step refused, and a
     lower loss on the repeated batch after the steps than before."""
@@ -1505,14 +1779,16 @@ def main() -> int:
     result["halo_step"] = halo_step(cfg, state, fbatch)
     del state, fbatch
     result["seqpar"] = phase_seqpar(cfg8k, card)
+    result["cli"] = phase_cli(cfg, train)
 
     # each kernel's launches, summed over the paths driven with counts:
-    # scoring + generation, the 3 train steps, the A3 step, and the seqpar
+    # scoring + generation, the 3 train steps, the A3 step, the seqpar
     # ranks' 3 steps and A4 halo-backward step (the single-process
-    # comparison there is left out)
+    # comparison there is left out), and the CLIs' steps and evals
     paths = dict(inference=run["launches"], train=train["launches"],
                  halo_step=result["halo_step"]["launches"],
-                 seqpar=result["seqpar"]["launches"])
+                 seqpar=result["seqpar"]["launches"],
+                 cli=result["cli"]["launches"])
     counts = {k: sum(c[k] for c in paths.values()) for k in run["launches"]}
     line("launches", **paths, total=counts)
     if not all(counts.values()):

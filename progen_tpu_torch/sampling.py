@@ -24,6 +24,12 @@ the logits' device once a step, so a seed gives the same noise on the
 CPU and on the card (the card's own generator, Philox, would give other
 numbers than the CPU's Mersenne Twister). ``noise=`` replaces the draws
 (tests hand in the JAX package's noise through it).
+
+``sample`` and ``sample_batched`` are the naive decoders, the JAX
+package's functions of those names: one full forward (through the
+kernels on the card) per drawn token instead of the cache. They take the
+same draws, so with the same seed they give ``sample_fast``'s tokens
+wherever the two forwards' logits pick the same token.
 """
 
 from __future__ import annotations
@@ -169,12 +175,34 @@ def _decode_batched(model, seqs: torch.Tensor, start: int, length: int,
         seqs[:, p + 1] = gumbel_topk_step(
             logit, top_k, draw(t, logit), parity, temperature, top_p
         )
+    return _truncate_after_eos(seqs)
+
+
+@torch.inference_mode()
+def _decode_naive(model, seqs: torch.Tensor, start: int, length: int,
+                  top_k, parity, temperature, top_p, draw) -> torch.Tensor:
+    """As ``_decode_batched``, with one full forward per draw. The
+    buffer is padded to the model's seq_len, which the forward needs; the
+    model is causal, so the padding changes no logit before it."""
+    buf = torch.zeros(seqs.shape[0], model.config.seq_len,
+                      dtype=seqs.dtype, device=seqs.device)
+    buf[:, :length] = seqs
+    for t, p in enumerate(range(start - 1, length - 1)):
+        logit = model(buf)[:, p]
+        buf[:, p + 1] = gumbel_topk_step(
+            logit, top_k, draw(t, logit), parity, temperature, top_p
+        )
+    return _truncate_after_eos(buf[:, :length])
+
+
+def _truncate_after_eos(seqs: torch.Tensor) -> torch.Tensor:
+    """Zero everything after the second zero token."""
     after_eos = torch.cumsum((seqs == 0).long(), dim=-1) > 1
     return seqs * (~after_eos)
 
 
 def _sample(row_seeds, model, primes, length, top_k, add_bos, temperature,
-            top_p, device, noise):
+            top_p, device, noise, decode=_decode_batched):
     dev = resolve_device(device)
     if model.device != dev:
         raise ValueError(f"model is on {model.device}, not {dev}")
@@ -188,10 +216,20 @@ def _sample(row_seeds, model, primes, length, top_k, add_bos, temperature,
         def draw(t, logit):
             return torch.as_tensor(noise(t), dtype=logit.dtype,
                                    device=dev).reshape(logit.shape)
-    return _decode_batched(
+    return decode(
         model, seqs, start, length, top_k, parity, float(temperature),
         _TOP_P_OFF if top_p is None else float(top_p), draw,
     )
+
+
+def _batched_seeds(seed: int, primes):
+    """(primes as a (batch, prime_len) array, each row's seed)."""
+    primes = np.asarray(primes)
+    if primes.ndim != 2 or primes.shape[0] == 0:
+        raise ValueError(
+            f"primes must be (batch >= 1, prime_len), got {primes.shape}"
+        )
+    return primes, [row_seed(seed, i) for i in range(primes.shape[0])]
 
 
 def sample_fast(seed: int, model, prime, length: int,
@@ -217,11 +255,28 @@ def sample_fast_batched(seed: int, model, primes, length: int,
     (batch, length). Row i equals ``sample_fast(row_seed(seed, i), ...)``
     on that prime. ``noise(t)`` returns draw t's (batch, num_tokens)
     noise."""
-    primes = np.asarray(primes)
-    if primes.ndim != 2 or primes.shape[0] == 0:
-        raise ValueError(
-            f"primes must be (batch >= 1, prime_len), got {primes.shape}"
-        )
-    seeds = [row_seed(seed, i) for i in range(primes.shape[0])]
+    primes, seeds = _batched_seeds(seed, primes)
     return _sample(seeds, model, primes, length, top_k, add_bos,
                    temperature, top_p, device, noise)
+
+
+def sample(seed: int, model, prime, length: int,
+           top_k: Optional[int] = 25, add_bos: bool = False,
+           temperature: float = 1.0, top_p: Optional[float] = None,
+           *, device="cuda", noise: Optional[Callable] = None):
+    """``sample_fast`` by one full forward per drawn token."""
+    prime = np.asarray(prime)
+    if prime.ndim != 1:
+        raise ValueError(f"prime must be 1-D, got shape {prime.shape}")
+    return _sample([seed], model, prime[None], length, top_k, add_bos,
+                   temperature, top_p, device, noise, _decode_naive)[0]
+
+
+def sample_batched(seed: int, model, primes, length: int,
+                   top_k: Optional[int] = 25, add_bos: bool = False,
+                   temperature: float = 1.0, top_p: Optional[float] = None,
+                   *, device="cuda", noise: Optional[Callable] = None):
+    """``sample_fast_batched`` by one full forward per drawn token."""
+    primes, seeds = _batched_seeds(seed, primes)
+    return _sample(seeds, model, primes, length, top_k, add_bos,
+                   temperature, top_p, device, noise, _decode_naive)

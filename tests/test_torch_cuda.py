@@ -660,3 +660,38 @@ def test_bad_inputs_raise(dev):
     with pytest.raises(ValueError, match="scale"):
         cuda_layers.norm_shift(x, torch.ones(32, device=dev), 1e-5,
                                torch.float32)
+
+
+@pytest.mark.parametrize("mixed", [False, True], ids=["float32", "bfloat16"])
+def test_cli_resume_is_bit_equal_on_the_card(dev, tmp_path, mixed):
+    """cli.train on the card: 4 steps equal 2 steps, a resume from the
+    checkpoint and 2 more, bit for bit (losses, parameters, moments),
+    with every step through the kernels."""
+    from progen_tpu_torch.cli import train
+    from torch_workspace import TOML, make_workspace, train_args
+
+    # SMALL's window and length, which the other card tests run
+    root = make_workspace(tmp_path, TOML.replace(
+        "window_size = 8", "window_size = 16").replace(
+        "seq_len = 32", "seq_len = 64"))
+    extra = ["--mixed_precision"] if mixed else []
+
+    def run(ckpt, steps):
+        args = train_args(root, ckpt, "--num_steps", str(steps),
+                          "--validate_every", "1", *extra)
+        return train.run(["--device", "cuda"] + args[2:])
+
+    before = cuda_attention.local_attention_fwd.launches
+    whole = run("a", 4)
+    assert cuda_attention.local_attention_fwd.launches > before
+    run("b", 2)
+    resumed = run("b", 2)
+    assert [s["loss"] for s in whole["steps"][2:]] == \
+        [s["loss"] for s in resumed["steps"]]
+    sa, sb = whole["state"], resumed["state"]
+    assert (sa.step, sa.optimizer.count) == (sb.step, sb.optimizer.count)
+    for k, v in sa.model.state_dict().items():
+        assert torch.equal(v, sb.model.state_dict()[k]), k
+    for name in ("mu", "nu"):
+        for k, v in getattr(sa.optimizer, name).items():
+            assert torch.equal(v, getattr(sb.optimizer, name)[k]), (name, k)

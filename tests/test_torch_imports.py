@@ -1,5 +1,8 @@
 """The port stands alone: it imports neither JAX nor flax nor anything of
-the JAX package ``progen_tpu``, and neither does ``chip_smoke.py``."""
+the JAX package ``progen_tpu``, and neither does ``chip_smoke.py``. Nor
+does it import the packages the card's machine lacks (click, safetensors,
+tqdm, jinja2, tensorflow, prefect). ``wandb`` is imported only where it
+is installed: every module imports with it blocked too."""
 
 import ast
 import pkgutil
@@ -11,7 +14,10 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "progen_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "progen_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "progen_tpu",
+             "click", "safetensors", "tqdm", "jinja2", "tensorflow",
+             "prefect")
+GUARDED = ("wandb",)  # imported inside try only
 
 
 def _modules():
@@ -22,7 +28,7 @@ def _modules():
 
 
 def test_every_module_imports_with_jax_blocked():
-    blocked = ", ".join(repr(n) for n in FORBIDDEN)
+    blocked = ", ".join(repr(n) for n in FORBIDDEN + GUARDED)
     code = f"""
 import importlib, sys
 for name in ({blocked},):
@@ -48,7 +54,11 @@ def test_package_has_the_slice_modules():
                 "models.layers", "models.progen", "training.loss",
                 "training.optimizer", "training.state", "training.step",
                 "workloads.scoring", "parallel", "parallel.groups",
-                "parallel.collectives", "parallel.ring_attention"):
+                "parallel.collectives", "parallel.ring_attention",
+                "data._native", "data.tfrecord", "data.dataset",
+                "data.fasta", "checkpoint", "tracking", "cli",
+                "cli.generate_data", "cli.train", "cli.eval",
+                "cli.sample"):
         assert f"progen_tpu_torch.{mod}" in names
 
 
