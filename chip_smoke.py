@@ -91,7 +91,40 @@ Phases, one line each:
      quarantine it and take the one before. It prints each step's ms and
      tokens/s beside phase 5's, the checkpoint's bytes and save and
      restore seconds, the padded share of the synthetic batches, the
-     eval loss and the phase's seconds.
+     eval loss and the phase's seconds;
+  9. serve, the slot-pool engine at base.toml in bfloat16: a ServeEngine
+     of 8 slots (max_len 256) behind a Scheduler (prefill_chunk 32, a
+     512 MiB PrefixCache) answers 13 requests, more than the slots: a
+     top_k = 1 occupant that stops at its first draw (its slot is reused
+     at once), six parity requests (top_k 25, BOS, primes of 4-32
+     tokens, lengths 48-192), two with temperature 0.8 and top_p 0.95,
+     an infill freezing a third of its positions, two sharing a 128-token
+     scaffold (primes 160 and 144: the second hits the prefix cache) and
+     one embedding. With the launch counts set to 0 just before and read
+     just after, the run must launch exactly one forward's kernels (the
+     embedding's: A1 24, L1 48, L2 2) and none in prefill or decode.
+     Checks: every generate stream against sample_fast on the card with
+     the same seed, knobs and template, bit for bit, or, where the batch
+     of 8 rounds otherwise than batch 1, with a near tie at the first
+     differing draw (each decoder's token replayed from its own logits
+     and noise, the two logits within the generate check's bound, and
+     either the reference's top two perturbed scores within twice their
+     distance or the two logits keeping different top_k/top_p sets with
+     a token either decoder drew among the ones that moved); all 12
+     generate streams through one slot (the occupant, then a request
+     with knobs, then the rest) bit for bit; the infill's frozen
+     positions verbatim; the prefix hit
+     bit-equal to the same request admitted cold, with only the fed
+     positions counted; the embedding against the plain path and the
+     float32 model by the scoring check's rule; every slot free at the
+     end. Then cli.serve in child processes on a checkpoint of the same
+     weights saved by checkpoint.py: three requests and an embedding, then
+     EOF (exit 0, each answered); the same with --journal_dir, SIGKILLed
+     after its first 8 tokens, then a --replay run: every id settled
+     exactly once over the two, and each stream over both lives bit-equal
+     to the first run's. It prints decode steps/s and tokens/s, TTFT p50
+     and p99, prefill ms per fed token, the embedding's ms, the pool's
+     device bytes and the phase's seconds, beside the card.
 
 Phase 2 also holds A4 (forward and both backwards, with a halo) against
 its plain versions at long8k's shard shapes with 2 shards, and runs the
@@ -117,6 +150,7 @@ import dataclasses
 import itertools
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -1709,6 +1743,487 @@ def phase_cli(cfg, train: dict) -> dict:
     return out
 
 
+
+# phase 9: the serving engine and cli.serve, at base.toml in bfloat16
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_CHUNK, SERVE_CACHE_MIB = 8, 256, 32, 512
+SERVE_PARITY = [(4, 48), (9, 56), (14, 64), (20, 72), (26, 96), (32, 192)]
+SERVE_KNOBS = dict(temperature=0.8, top_p=0.95)
+SCAFFOLD = 128  # tokens the scaffold pair shares
+CLI_KILL_AFTER = 8  # token lines the killed cli.serve run prints first
+
+
+def serve_requests() -> list:
+    """The 13 requests of phase 9, in submission order: a top_k = 1
+    occupant that draws EOS at once (its slot is reused), six parity
+    requests, two with knobs, an infill freezing every third position, a
+    pair sharing a 128-token scaffold (primes 160 and 144: the second is
+    a prefix-cache hit) and one embedding."""
+    from progen_tpu_torch.data.tokenizer import encode_tokens
+    from progen_tpu_torch.serving import Request
+    from progen_tpu_torch.workloads.infill import (
+        infill_request_arrays,
+        parse_template,
+    )
+
+    def enc(s):
+        return encode_tokens(s).astype(np.int64)
+
+    reqs = [Request(id="occupant", prime=enc(PROTEINS[0][:5]), length=16,
+                    top_k=1, add_bos=True, seed=200)]
+    reqs += [Request(id=f"parity{i}", prime=enc(PROTEINS[i][:n]),
+                     length=length, add_bos=True, seed=100 + i)
+             for i, (n, length) in enumerate(SERVE_PARITY)]
+    reqs += [Request(id=f"knobs{i}", prime=enc(PROTEINS[6 + i][:6 * i + 6]),
+                     length=48 + 16 * i, add_bos=True, seed=110 + i,
+                     **SERVE_KNOBS) for i in range(2)]
+    # the first 4 residues frozen (the prime), then every third
+    template = "".join(c if i < 4 or i % 3 == 0 else "?"
+                       for i, c in enumerate(PROTEINS[2][:64]))
+    prime, length, tpl, frz = infill_request_arrays(
+        *parse_template(template))
+    reqs.append(Request(id="infill", prime=prime, length=length,
+                        add_bos=True, template=tpl, frozen=frz, seed=120))
+    # no other request shares more than its BOS with the scaffold
+    scaffold = enc(PROTEINS[1][40:40 + SCAFFOLD])
+    reqs += [Request(id=f"scaffold{i}", prime=np.concatenate(
+        [scaffold, enc(PROTEINS[5][:tail])]), length=length, add_bos=True,
+        seed=130 + i) for i, (tail, length) in enumerate([(32, 168),
+                                                          (16, 152)])]
+    reqs.append(Request(id="embed", prime=enc(PROTEINS[3]), length=0,
+                        add_bos=True, kind="embed"))
+    return reqs
+
+
+@contextlib.contextmanager
+def decode_log(model, extra=None):
+    """Record every ``model.decode_step`` call while the block runs: the
+    positions fed (before the step), the logits, and ``extra()`` if
+    given. The comparisons read the logits each decoder drew from."""
+    step, log = model.decode_step, []
+
+    def recorded(tokens, cache):
+        pos = cache.pos.clone()
+        logits = step(tokens, cache)
+        log.append((pos, logits, None if extra is None else extra()))
+        return logits
+
+    with mock.patch.object(model, "decode_step", recorded):
+        yield log
+
+
+def reference_stream(model, req):
+    """sample_fast's tokens for ``req`` and, by position fed, its
+    logits."""
+    from progen_tpu_torch.sampling import sample_fast
+
+    with decode_log(model) as log:
+        out = sample_fast(req.seed, model, req.prime, req.length,
+                          top_k=req.top_k, add_bos=req.add_bos,
+                          temperature=req.temperature, top_p=req.top_p,
+                          template=req.template, frozen=req.frozen,
+                          device="cuda").cpu().numpy()
+    return out, {int(pos[0]): logits[0].float() for pos, logits, _ in log}
+
+
+def serve_run(model, reqs, slots: int, prefix_cache=None, log=None):
+    """Submit ``reqs`` to a fresh engine and scheduler and run them to
+    completion; (completions by id, the scheduler). With ``log`` (a
+    list), every pool step's positions, logits, buffers and live slots
+    are recorded into it."""
+    from progen_tpu_torch.serving import Scheduler, ServeEngine
+
+    sched = Scheduler(ServeEngine(model, max_slots=slots,
+                                  max_len=SERVE_MAX_LEN),
+                      prefill_chunk=SERVE_CHUNK, prefix_cache=prefix_cache)
+    for r in reqs:
+        ok, reason = sched.submit(r)
+        if not ok:
+            raise AssertionError(f"{r.id} rejected: {reason}")
+    pool = sched.engine.slots
+    with decode_log(model, lambda: (pool.seqs.clone(), pool.live.clone())
+                    ) as steps:
+        _, comps = sched.run_to_completion(max_steps=5000)
+    if log is not None:
+        log.extend(steps)
+    torch.cuda.synchronize()
+    engine = sched.engine
+    if engine.num_active or bool(engine.slots.live.any()):
+        raise AssertionError("a slot is still held or live at the end")
+    return {c.request_id: c for c in comps}, sched
+
+
+def pool_logits(log, tokens, p: int) -> torch.Tensor:
+    """From a pool run's decode log: the logits the pool drew position
+    ``p`` of ``tokens`` from, found as the live row that fed position
+    p - 1 with ``tokens``' first p tokens in its buffer."""
+    want = torch.from_numpy(tokens[:p]).cuda()
+    for pos, logits, (seqs, live) in log:
+        if pos.shape[0] != SERVE_SLOTS:
+            continue  # a batch-1 prefill step
+        rows = (live & (pos == p - 1)
+                & (seqs[:, :p] == want).all(dim=1)).nonzero()
+        if rows.numel():
+            return logits[int(rows[0, 0])].float()
+    raise AssertionError(f"no pool step fed position {p - 1} of the "
+                         "stream")
+
+
+def kept(logit, req) -> torch.Tensor:
+    """The tokens the sampler's filters keep for ``req``'s knobs: top_k
+    on the logits (parity) or top_p and top_k on the tempered ones."""
+    from progen_tpu_torch.sampling import select_top_k, select_top_p
+
+    if req.temperature == 1.0 and req.top_p is None:
+        if req.top_k is None:
+            return torch.ones_like(logit, dtype=torch.bool)
+        return select_top_k(logit[None], req.top_k)[0][0]
+    lt = logit / req.temperature
+    keep = select_top_p(lt[None], req.top_p)[0]
+    if req.top_k is not None:
+        keep &= select_top_k(lt[None], req.top_k)[0][0]
+    return keep
+
+
+def perturbed_scores(logit, noise, req) -> torch.Tensor:
+    """The scores whose argmax the sampler takes for ``req``'s knobs:
+    the parity branch's (filtered tokens at 0) or the knob branch's."""
+    keep = kept(logit, req)
+    if req.temperature == 1.0 and req.top_p is None:
+        return torch.where(keep, logit + noise, 0.0)
+    return torch.where(keep, logit / req.temperature + noise, -torch.inf)
+
+
+def redraw(logit, noise, req, p: int, pool: bool) -> tuple:
+    """(the draw, the token written) of each decoder at position ``p``
+    from ``logit`` and the stream's noise: the pool with the per-slot
+    sampler, sample_fast with the static one; an infill's draw
+    constrained as both do."""
+    from progen_tpu_torch.sampling import (
+        _TOP_P_OFF,
+        _constrain,
+        gumbel_step_dynamic,
+        gumbel_topk_step,
+    )
+
+    parity = req.temperature == 1.0 and req.top_p is None
+    top_p = _TOP_P_OFF if req.top_p is None else req.top_p
+    if pool:
+        def one(v, dtype):
+            return torch.tensor([v], dtype=dtype, device=logit.device)
+        draw = gumbel_step_dynamic(
+            noise[None], logit[None], one(req.top_k or 0, torch.long),
+            one(parity, torch.bool), one(req.temperature, torch.float32),
+            one(top_p, torch.float32))
+    else:
+        draw = gumbel_topk_step(logit[None], req.top_k, noise[None], parity,
+                                req.temperature, top_p)
+    tok = draw
+    if req.template is not None:
+        infill = (torch.from_numpy(a).to(logit.device)[None]
+                  for a in (req.template, req.frozen))
+        tok = _constrain(draw, logit[None], torch.full_like(draw, p),
+                         *infill)
+    return int(draw[0]), int(tok[0])
+
+
+def near_tie(req, got, want, ref_log, pool_log, p: int,
+             bound: float) -> dict:
+    """Phase 9's rule for a pool stream that differs from sample_fast's
+    first at position ``p``. Each decoder's token there follows from its
+    own logits and the stream's noise (so the difference lies in the
+    logits); the two logits agree within ``bound`` (the generate
+    check's); and the draw is at a near tie: the reference's top two
+    perturbed scores within twice the logits' distance, or the filter's
+    boundary moved, shown by the two logits keeping different sets under
+    the request's top_k/top_p with a token drawn or written by either
+    decoder among the ones that moved."""
+    from progen_tpu_torch.sampling import seeded_noise
+
+    start = len(req.prime) + req.add_bos
+    ref, pool = ref_log[p - 1], pool_logits(pool_log, got, p)
+    dist = (pool - ref).abs().max().item()
+    noise = seeded_noise([req.seed], [p - start],
+                         ref.shape[-1])[0].cuda()
+    pool_draw, pool_tok = redraw(pool, noise, req, p, True)
+    ref_draw, ref_tok = redraw(ref, noise, req, p, False)
+    replays = bool(pool_tok == got[p] and ref_tok == want[p])
+    top2 = perturbed_scores(ref, noise, req).topk(2).values
+    top2_gap = (top2[0] - top2[1]).item()
+    moved = kept(ref, req) ^ kept(pool, req)
+    moved_ids = moved.nonzero().flatten().tolist()
+    filter_moved = bool(set(moved_ids) & {pool_draw, ref_draw,
+                                          int(got[p]), int(want[p])})
+    by = ("top2" if top2_gap <= 2 * dist
+          else "filter" if filter_moved else None)
+    return dict(position=p, logit_distance=dist, bound=bound,
+                top2_gap=top2_gap, moved=moved_ids,
+                draws=[pool_draw, ref_draw], replays=replays, by=by,
+                ok=bool(replays and dist <= bound and by is not None))
+
+
+def check_embed(model, model32, req, vec) -> dict:
+    """The embed vector against the plain path's and the float32 model's
+    by the scoring check's rule: no further from the float32 one than
+    twice the plain bfloat16 path."""
+    from progen_tpu_torch.serving import ServeEngine
+
+    vec = torch.from_numpy(vec)
+    with plain_path():
+        plain = torch.from_numpy(ServeEngine(model, max_slots=1).embed(
+            req.prime, add_bos=True))
+        ref32 = torch.from_numpy(ServeEngine(model32, max_slots=1).embed(
+            req.prime, add_bos=True))
+    e_k = (vec - ref32).abs().max().item()
+    e_p = (plain - ref32).abs().max().item()
+    if vec.shape != (model.config.dim,) or not e_k <= 2 * e_p + 1e-3:
+        raise AssertionError(f"embed: kernel vs f32 {e_k}, plain vs f32 "
+                             f"{e_p}, shape {tuple(vec.shape)}")
+    return dict(embed_vs_f32=e_k, plain_vs_f32=e_p,
+                embed_vs_plain=(vec - plain).abs().max().item())
+
+
+def serve_cli_lines() -> list:
+    return [json.dumps(r) for r in (
+        {"id": "c1", "prime": PROTEINS[4][:8], "length": 40, "seed": 1},
+        {"id": "c2", "prime": PROTEINS[5][:12], "length": 32, "seed": 2,
+         "temperature": 0.8, "top_p": 0.95},
+        {"id": "c3", "template": "M?K?A?Y?I?A?K?Q?R", "seed": 3},
+        {"id": "c4", "prime": PROTEINS[7], "embed": True})]
+
+
+def cli_serve(ck: Path, cwd: Path, *flags):
+    """cli.serve in a child process on ``ck``, one card slot, lengths up
+    to SERVE_MAX_LEN: the kernels it loads were built by this process."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "progen_tpu_torch.cli.serve",
+         "--checkpoint_path", str(ck), "--max-slots", "1", "--max-len",
+         str(SERVE_MAX_LEN), *flags],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=cwd,
+        env=dict(os.environ, PYTHONPATH=str(REPO)))
+
+
+def finish(proc, stdin: str = "", timeout: int = 300):
+    """Send ``stdin``, close it (EOF drains) and wait; (rc, events,
+    stderr)."""
+    out, err = proc.communicate(stdin, timeout=timeout)
+    return proc.returncode, [json.loads(ln) for ln in out.splitlines()], err
+
+
+def settled(events) -> list:
+    return [ev["id"] for ev in events if ev["event"] in ("done",
+                                                          "embedding")]
+
+
+def token_streams(records, key: str = "id") -> dict:
+    """id -> [tokens by index] from token lines or journal records."""
+    out: dict = {}
+    for ev in records:
+        if ev.get("event", ev.get("op")) == "token":
+            out.setdefault(ev[key], {})[ev["index"]] = ev["token"]
+    return {k: [v[i] for i in sorted(v)] for k, v in out.items()}
+
+
+def phase_serve_cli(model, engine_embed) -> dict:
+    """Phase 9's cli.serve part: a checkpoint of the script's weights
+    saved with the port's checkpoint.py; one run of three requests and an
+    embedding, then EOF (exit 0, each id answered); one with
+    --journal_dir SIGKILLed after its first tokens, then a --replay run:
+    each accepted id settled exactly once over the two, and each stream
+    in the journal over both lives bit-equal to the first run's (one
+    slot, so every position is fed at batch 1 in both)."""
+    import shutil
+    import signal
+
+    from progen_tpu_torch.checkpoint import Package, get_checkpoint_fns
+    from progen_tpu_torch.training.optimizer import (
+        MaskedAdamW,
+        OptimizerConfig,
+    )
+    from progen_tpu_torch.training.state import TrainState
+
+    work = REPO / "build" / "chip_smoke_serve"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        ck, jd = work / "ck", work / "journal"
+        t = time.perf_counter()
+        state = TrainState(0, model, MaskedAdamW(model, OptimizerConfig()))
+        get_checkpoint_fns(str(ck))[2](Package(
+            next_seq_index=0, state=state,
+            model_config=model.config.to_dict(), run_id=None))
+        save_s = time.perf_counter() - t
+        del state
+        lines = "".join(ln + "\n" for ln in serve_cli_lines())
+        ids = ["c1", "c2", "c3", "c4"]
+
+        # the uninterrupted run and the journaled one start together
+        t = time.perf_counter()
+        whole_proc = cli_serve(ck, work)
+        whole_proc.stdin.write(lines)
+        whole_proc.stdin.flush()
+        proc = cli_serve(ck, work, "--journal_dir", str(jd))
+        proc.stdin.write(lines)
+        proc.stdin.flush()
+        first, seen = [], 0
+        while seen < CLI_KILL_AFTER:
+            ln = proc.stdout.readline()
+            if not ln:
+                raise AssertionError("the journaled run ended early: "
+                                     + proc.stderr.read()[-2000:])
+            first.append(json.loads(ln))
+            seen += first[-1]["event"] == "token"
+        proc.send_signal(signal.SIGKILL)
+        rest, _ = proc.communicate(timeout=60)
+        first += [json.loads(ln) for ln in rest.splitlines()
+                  if ln.endswith("}")]
+        killed_rc = proc.returncode
+        rc, whole, err = finish(whole_proc, "")
+        if rc != 0 or sorted(settled(whole)) != ids:
+            raise AssertionError(f"cli.serve: rc {rc}, settled "
+                                 f"{settled(whole)}: {err[-2000:]}")
+        load = [ln for ln in err.splitlines() if ln.startswith("serving:")]
+        (emb,) = [ev for ev in whole if ev["event"] == "embedding"]
+        d_emb = float(np.abs(np.array(emb["values"]) - engine_embed(
+            PROTEINS[7])).max())
+        if not d_emb <= 1e-6:  # the line rounds to 6 decimals
+            raise AssertionError(f"cli.serve's embedding differs by {d_emb}")
+        rc, second, err = finish(cli_serve(
+            ck, work, "--journal_dir", str(jd), "--replay", str(jd)))
+        both = settled(first) + settled(second)
+        journal = [json.loads(ln) for ln in
+                   (jd / "journal.jsonl").read_text().splitlines()
+                   if ln.endswith("}")]
+        resumed = token_streams(journal, key="req")
+        want = token_streams(whole)
+        if (killed_rc != -signal.SIGKILL or rc != 0
+                or sorted(both) != ids or resumed != want):
+            raise AssertionError(
+                f"journal/replay: killed rc {killed_rc}, replay rc {rc}, "
+                f"settled {both}, streams equal {resumed == want}: "
+                f"{err[-2000:]}")
+        return dict(checkpoint_save_s=save_s,
+                    runs_s=time.perf_counter() - t, serving=load,
+                    killed_after_tokens=seen, settled_before_kill=sorted(
+                        settled(first)), replay=[ln for ln in err.splitlines()
+                                                 if ln.startswith("replay:")],
+                    resumed_equal=True, embed_distance=d_emb)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_serve(cfg, gen_bound: float, card: str) -> dict:
+    """Phase 9: the serving engine at base.toml in bfloat16 (see the
+    module docstring), then cli.serve in child processes."""
+    from progen_tpu_torch import ProGen
+    from progen_tpu_torch.serving import PrefixCache, ServeEngine
+
+    t_phase = time.perf_counter()
+    model = ProGen(cfg, device="cuda", seed=0).eval()
+    model32 = ProGen(dataclasses.replace(cfg, dtype="float32"),
+                     device="cuda", seed=None).eval()
+    model32.load_state_dict(model.state_dict())
+    reqs = serve_requests()
+    gens = [r for r in reqs if r.kind == "generate"]
+    by_id = {r.id: r for r in reqs}
+
+    cache = PrefixCache(SERVE_CACHE_MIB << 20)
+    reset_counts()
+    t = time.perf_counter()
+    pool_log = []
+    comps, sched = serve_run(model, reqs, SERVE_SLOTS, cache, pool_log)
+    run_s = time.perf_counter() - t
+    counts = launch_counts()
+    snap = sched.metrics.snapshot()
+    pool = sched.engine.slots
+    pool_bytes = pool.cache.nbytes + sum(
+        t.nbytes for t in (pool.seqs, pool.cur, pool.nz, pool.target,
+                           pool.temp, pool.top_p, pool.top_k, pool.parity,
+                           pool.live, pool.template, pool.frozen))
+    del sched, pool
+
+    bad = []
+    if counts != per_forward(cfg):
+        bad.append(f"the serve path launched {counts}, not one forward's "
+                   f"{per_forward(cfg)}")
+    parts = {"pool_run": run_s}  # seconds of each part of the phase
+    t = time.perf_counter()
+    refs = {r.id: reference_stream(model, r) for r in gens}
+    parts["references"] = time.perf_counter() - t
+    equal, ties = [], {}
+    for r in gens:
+        got, (want, ref_log) = comps[r.id].tokens, refs[r.id]
+        if np.array_equal(got, want):
+            equal.append(r.id)
+            continue
+        diff = np.flatnonzero(got != want)
+        ties[r.id] = near_tie(r, got, want, ref_log, pool_log,
+                              int(diff[0]), gen_bound)
+        if not ties[r.id]["ok"]:
+            bad.append(f"{r.id} differs from sample_fast at "
+                       f"{diff.tolist()[:5]}: {ties[r.id]}")
+    infill = by_id["infill"]
+    if not np.array_equal(comps["infill"].tokens[infill.frozen],
+                          infill.template[infill.frozen]):
+        bad.append("the infill's frozen positions are not verbatim")
+    if comps["occupant"].n_generated != 1:
+        bad.append("the top_k = 1 occupant did not stop at its first draw")
+
+    hit = by_id["scaffold1"]
+    hit_tokens = snap["prefix_cache_hit_tokens"]
+    fed = sum(len(r.prime) + r.add_bos - 1 for r in gens) - hit_tokens
+    t = time.perf_counter()
+    cold, _ = serve_run(model, [hit], SERVE_SLOTS)
+    parts["cold_admission"] = time.perf_counter() - t
+    if not np.array_equal(comps[hit.id].tokens, cold[hit.id].tokens):
+        bad.append("the prefix-cache hit differs from the cold admission")
+    if hit_tokens != SCAFFOLD or snap["prefill_tokens"] != fed:
+        bad.append(f"prefix cache: {hit_tokens} positions hit (want "
+                   f"{SCAFFOLD}), {snap['prefill_tokens']} fed (want {fed})")
+
+    # one slot: every generate stream at batch 1, the occupant's slot
+    # reused first by a request with knobs, then by each of the rest
+    t = time.perf_counter()
+    order = ["occupant", "knobs0"] + [r.id for r in gens
+                                      if r.id not in ("occupant", "knobs0")]
+    one, _ = serve_run(model, [by_id[i] for i in order], 1)
+    parts["one_slot"] = time.perf_counter() - t
+    one_equal = [i for i in order
+                 if np.array_equal(one[i].tokens, refs[i][0])]
+    if len(one_equal) != len(gens):
+        bad.append(f"max_slots=1: only {one_equal} equal sample_fast")
+    embed = check_embed(model, model32, by_id["embed"],
+                        comps["embed"].embedding)
+    if bad:
+        raise AssertionError("serve: " + "; ".join(bad))
+    del model32
+
+    from progen_tpu_torch.data.tokenizer import encode_tokens
+
+    t = time.perf_counter()
+    engine1 = ServeEngine(model, max_slots=1)
+    cli = phase_serve_cli(model, lambda s: engine1.embed(encode_tokens(s),
+                                                         add_bos=True))
+    parts["cli"] = time.perf_counter() - t
+    steps = snap["decode_steps"]
+    out = dict(
+        card=card, requests=len(reqs), slots=SERVE_SLOTS,
+        max_len=SERVE_MAX_LEN, run_s=run_s,
+        decode_steps_per_s=steps / snap["decode_time_s"],
+        decode_tokens_per_s=snap["decode_tokens_per_s"],
+        decode_tokens=snap["decode_tokens"], decode_steps=steps,
+        ttft_p50_s=snap["ttft_s_p50_s"], ttft_p99_s=snap["ttft_s_p99_s"],
+        prefill_ms_per_token=snap["prefill_time_s"] * 1e3
+        / snap["prefill_tokens"], prefill_tokens=snap["prefill_tokens"],
+        prefix_hit_tokens=hit_tokens, embed_ms=snap["embed_time_s"] * 1e3,
+        pool_bytes=pool_bytes, pool_bytes_per_slot=pool_bytes // SERVE_SLOTS,
+        launches=counts, bit_equal=len(equal), streams=len(gens),
+        near_ties=ties, slots1_bit_equal=len(one_equal), **embed, cli=cli,
+        parts_s=parts, seconds=time.perf_counter() - t_phase)
+    line("serve", **out)
+    return out
+
+
 def check_training(run: dict) -> None:
     """Phase 6c: every loss and grad norm finite, no step refused, and a
     lower loss on the repeated batch after the steps than before."""
@@ -1780,15 +2295,19 @@ def main() -> int:
     del state, fbatch
     result["seqpar"] = phase_seqpar(cfg8k, card)
     result["cli"] = phase_cli(cfg, train)
+    result["serve"] = phase_serve(
+        cfg, 2 * result["generate"]["plain_vs_f32"] + 1e-3, card)
 
     # each kernel's launches, summed over the paths driven with counts:
     # scoring + generation, the 3 train steps, the A3 step, the seqpar
     # ranks' 3 steps and A4 halo-backward step (the single-process
-    # comparison there is left out), and the CLIs' steps and evals
+    # comparison there is left out), the CLIs' steps and evals, and the
+    # serving engine's run
     paths = dict(inference=run["launches"], train=train["launches"],
                  halo_step=result["halo_step"]["launches"],
                  seqpar=result["seqpar"]["launches"],
-                 cli=result["cli"]["launches"])
+                 cli=result["cli"]["launches"],
+                 serve=result["serve"]["launches"])
     counts = {k: sum(c[k] for c in paths.values()) for k in run["launches"]}
     line("launches", **paths, total=counts)
     if not all(counts.values()):

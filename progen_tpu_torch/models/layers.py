@@ -13,7 +13,10 @@ The full-sequence path runs the kernels through their wrappers
 CUDA kernels, on the CPU their plain versions; each wrapper is
 differentiable, and the attention backward is the kernel that
 ``ATTN_BWD_IMPL`` names. The one-token decode path runs plain PyTorch
-against an explicit per-layer cache.
+against an explicit per-layer cache, each row at its own position
+(a (batch,) tensor): RoPE is gathered per row, each row writes its own
+ring slot and gate-history row, and the window-0 dilution and the SGU
+row's causal mask are selected per row.
 
 Sequence shards: given a process ``group`` (the seq group of
 ``parallel.Grid``), a block's input is the rank's shard of each
@@ -26,6 +29,7 @@ shard's rows of the mix (the reference's ``sgu_seq_out`` rule).
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -84,16 +88,36 @@ class ScaleNorm(nn.Module):
         return norm_reference(x, self.scale, self.epsilon, dtype)
 
 
+class DecodeAt(NamedTuple):
+    """One decode step's row positions and what every layer derives from
+    them, computed once a step (``of``) rather than in each layer."""
+
+    pos: torch.Tensor  # (b,) int64
+    slot: torch.Tensor  # (b,) the ring slot, pos % 2w
+    block: torch.Tensor  # (b, 1) the window index, pos // w
+    first_window: torch.Tensor  # (b, 1, 1, 1) bool, pos < w
+    rope: tuple  # sin, cos at each row's position, (b, 1, 1, dim_head)
+
+    @classmethod
+    def of(cls, pos: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor,
+           window: int) -> "DecodeAt":
+        """``sin``/``cos``: the full (seq_len, dim_head) tables."""
+        return cls(pos, pos % (2 * window), (pos // window)[:, None],
+                   (pos < window)[:, None, None, None],
+                   (sin[pos][:, None, None], cos[pos][:, None, None]))
+
+
 @dataclasses.dataclass
 class AttnCache:
     """Decode state of one attention block, updated in place by each
-    step: a rolling ring of 2w keys and values (slot ``p % 2w`` holds
-    position p), the position each slot holds (-1 = empty), and the
-    previous position's post-norm features for the token shift."""
+    step: a rolling ring of 2w keys and values per row (slot ``p % 2w``
+    holds position p), the position each row's slot holds (-1 = empty),
+    and the previous position's post-norm features for the token
+    shift."""
 
     k: torch.Tensor  # (b, heads, 2w, dim_head)
     v: torch.Tensor
-    slot_pos: torch.Tensor  # (2w,) int64
+    slot_pos: torch.Tensor  # (b, 2w) int64
     shift_state: torch.Tensor | None  # (b, 1, d - d//2)
 
 
@@ -183,45 +207,45 @@ class LocalAttentionBlock(nn.Module):
         return AttnCache(
             k=torch.zeros(shape, dtype=dt, device=device),
             v=torch.zeros(shape, dtype=dt, device=device),
-            slot_pos=torch.full((ring,), -1, dtype=torch.int64,
+            slot_pos=torch.full((batch, ring), -1, dtype=torch.int64,
                                 device=device),
             shift_state=(torch.zeros((batch, 1, split), dtype=dt,
                                      device=device)
                          if c.shift_tokens else None),
         )
 
-    def decode(self, x, sin, cos, pos: int, cache: AttnCache):
-        """One position: x (b, 1, dim); sin/cos the full tables."""
+    def decode(self, x, at: DecodeAt, cache: AttnCache):
+        """One position per row: x (b, 1, dim) at the rows' positions
+        ``at``."""
         c = self.config
         h = _cached_head(self.norm, c, x, cache)
-        q, k, v = self._qkv(h, sin[pos:pos + 1], cos[pos:pos + 1])
-        return self._out(self._decode_attend(q, k, v, pos, cache))
+        q, k, v = self._qkv(h, *at.rope)
+        return self._out(self._decode_attend(q, k, v, at, cache))
 
-    def _decode_attend(self, q, k, v, pos: int, cache: AttnCache):
-        """One-token attention against the ring. Visibility comes from the
-        stored positions; window-0 queries' softmax is diluted by exactly
-        w phantom zero-score, zero-value keys through an analytic term in
-        the denominator."""
+    def _decode_attend(self, q, k, v, at: DecodeAt, cache: AttnCache):
+        """One-token attention of each row against its ring. Visibility
+        comes from the stored positions; a window-0 query's softmax is
+        diluted by exactly w phantom zero-score, zero-value keys through
+        an analytic term in the denominator, selected per row."""
         c = self.config
         w, dh = c.window_size, c.dim_head
-        slot = pos % (2 * w)
-        # in place: this position's key and value enter the ring
-        cache.k[:, :, slot] = k[:, :, 0]
-        cache.v[:, :, slot] = v[:, :, 0]
-        cache.slot_pos[slot] = pos
-        sp = cache.slot_pos
-        visible = (sp >= 0) & (sp <= pos) & (pos // w - sp // w <= 1)
+        # in place: each row's key and value enter its ring
+        idx = at.slot.view(-1, 1, 1, 1).expand_as(k)
+        cache.k.scatter_(2, idx, k.to(cache.k.dtype))
+        cache.v.scatter_(2, idx, v.to(cache.v.dtype))
+        cache.slot_pos.scatter_(1, at.slot[:, None], at.pos[:, None])
+        sp, p = cache.slot_pos, at.pos[:, None]
+        visible = (sp >= 0) & (sp <= p) & (at.block - sp // w <= 1)
         scores = torch.einsum("bhqd,bhkd->bhqk", q.float(),
                               cache.k.float()) * (dh ** -0.5)
-        scores = scores.masked_fill(~visible, ATTN_MASK_VALUE)
+        scores = scores.masked_fill(~visible[:, None, None, :],
+                                    ATTN_MASK_VALUE)
         m = scores.amax(dim=-1, keepdim=True)
-        first_window = pos < w
-        if first_window:
-            m = torch.clamp(m, min=0.0)
+        first_window = at.first_window
+        m = torch.where(first_window, torch.clamp(m, min=0.0), m)
         e = torch.exp(scores - m)
         denom = e.sum(dim=-1, keepdim=True)
-        if first_window:
-            denom = denom + w * torch.exp(-m)
+        denom = denom + torch.where(first_window, w * torch.exp(-m), 0.0)
         out = torch.einsum("bhqk,bhkd->bhqd", e, cache.v.float()) / denom
         return out.to(q.dtype)
 
@@ -261,16 +285,21 @@ class SpatialGatingUnit(nn.Module):
                             self.norm.scale.shape[0]),
                            dtype=torch.float32, device=device)
 
-    def decode(self, h, pos: int, gate_history: torch.Tensor):
-        """out[pos] = sum_{j<=pos} W[pos, j] gate[j] + b[pos] against the
-        history of normalised gates, which this step extends in place."""
+    def decode(self, h, at: DecodeAt, gate_history: torch.Tensor):
+        """out[p] = sum_{j<=p} W[p, j] gate[j] + b[p] for each row's
+        position p, against the history of normalised gates, which this
+        step extends in place."""
         c = self.config
         x, gate = h.chunk(2, dim=-1)
         gate = self.norm(gate, c.compute_dtype)
-        gate_history[:, pos] = gate[:, 0].float()
-        row = self.spatial_weights[pos].float().clone()
-        row[pos + 1:] = 0.0
-        mixed = torch.einsum("bnd,n->bd", gate_history, row)
+        pos = at.pos
+        gate_history.scatter_(
+            1, pos.view(-1, 1, 1).expand(-1, 1, gate.shape[-1]),
+            gate.float())
+        cols = torch.arange(c.seq_len, device=pos.device)
+        row = torch.where(cols <= pos[:, None],
+                          self.spatial_weights[pos].float(), 0.0)
+        mixed = torch.einsum("bnd,bn->bd", gate_history, row)
         mixed = mixed + self.spatial_biases[pos].float()
         x = x * mixed[:, None, :].to(x.dtype)
         return self.proj_out(x, c.compute_dtype)
@@ -317,8 +346,8 @@ class FeedForwardBlock(nn.Module):
                           if self.sgu is not None else None),
         )
 
-    def decode(self, x, pos: int, cache: FFCache):
+    def decode(self, x, at: DecodeAt, cache: FFCache):
         h = self._activate(_cached_head(self.norm, self.config, x, cache))
         if self.sgu is not None:
-            h = self.sgu.decode(h, pos, cache.gate_history)
+            h = self.sgu.decode(h, at, cache.gate_history)
         return self.proj_out(h, self.config.compute_dtype)

@@ -15,9 +15,12 @@ feed-forward block is recomputed in the backward
 (``torch.utils.checkpoint``), the counterpart of ``nn.remat`` per block.
 ``decode_step``
 takes one token per row and carries a ``DecodeCache`` (rolling 2-window
-K/V ring, token-shift states, SGU gate history), as the JAX model's
-``config.decode`` mode does; its logits at each position equal the full
-forward's.
+K/V ring, token-shift states, SGU gate history, and each row's
+position), as the JAX model's ``config.decode`` mode does; its logits at
+each position equal the full forward's. Rows may stand at different
+positions, so one cache can hold requests admitted at different times
+(the serving engine's slot pool). ``features`` returns the final-norm
+states that embeddings pool.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from progen_tpu_torch._device import resolve_device
 from progen_tpu_torch.config import ProGenConfig
 from progen_tpu_torch.models.layers import (
     AttnCache,
+    DecodeAt,
     Dense,
     FFCache,
     FeedForwardBlock,
@@ -43,14 +47,79 @@ from progen_tpu_torch.models.layers import (
 from progen_tpu_torch.ops.rotary import fixed_pos_embedding
 
 
-@dataclasses.dataclass
-class DecodeCache:
-    """Per-layer decode state plus the shared position; ``decode_step``
-    updates every tensor in place and advances ``pos``."""
+def _fields(c) -> list:
+    """A layer cache's tensors (or None) in field order, not copied."""
+    return [getattr(c, f.name) for f in dataclasses.fields(c)]
 
-    attn: list[AttnCache]
-    ff: list[FFCache]
-    pos: int = 0
+
+class DecodeCache:
+    """Per-layer decode state plus each row's position; ``decode_step``
+    updates every tensor in place and advances every row by one. The
+    row helpers move whole rows between caches of any batch: every
+    tensor's leading axis is the row.
+
+    ``pos`` lives on the device; ``top`` is the host's bound on its
+    largest entry, kept without reading the device, so the seq_len check
+    costs a decode step no synchronisation. ``cache.pos = p`` places
+    every row at p; ``place_`` sets the rows from a device tensor."""
+
+    def __init__(self, attn: list, ff: list, pos: torch.Tensor,
+                 top: int = 0):
+        self.attn, self.ff = attn, ff
+        self._pos = pos  # (batch,) int64
+        self.top = int(top)
+
+    @property
+    def pos(self) -> torch.Tensor:
+        return self._pos
+
+    @pos.setter
+    def pos(self, value: int) -> None:
+        if isinstance(value, torch.Tensor):
+            raise TypeError("set positions from a tensor with place_, "
+                            "which takes the host's bound on them")
+        self._pos.fill_(int(value))
+        self.top = int(value)
+
+    def place_(self, pos: torch.Tensor, top: int) -> None:
+        """Each row's position from ``pos`` (batch,), no entry above
+        ``top``."""
+        self._pos.copy_(pos)
+        self.top = int(top)
+
+    def tensors(self) -> list:
+        """Every tensor of the state, in a fixed order."""
+        out = [t for c in self.attn + self.ff for t in _fields(c)
+               if t is not None]
+        return out + [self._pos]
+
+    def _map(self, fn) -> "DecodeCache":
+        def each(c):
+            return type(c)(*(None if t is None else fn(t)
+                             for t in _fields(c)))
+        return DecodeCache([each(c) for c in self.attn],
+                           [each(c) for c in self.ff], fn(self._pos),
+                           self.top)
+
+    def clone(self) -> "DecodeCache":
+        """A copy that shares no storage with this cache."""
+        return self._map(torch.clone)
+
+    def row(self, s: int) -> "DecodeCache":
+        """Row ``s`` as a batch-1 cache that shares no storage."""
+        return self._map(lambda t: t[s:s + 1].clone())
+
+    def set_row_(self, s: int, src: "DecodeCache") -> None:
+        """Copy the batch-1 cache ``src`` into row ``s``, in place. From a
+        fresh ``init_cache(1)`` this resets the row: its ring slots hold
+        position -1 again (zeroing would make them hold position 0)."""
+        for dst, t in zip(self.tensors(), src.tensors(), strict=True):
+            dst[s] = t[0]
+        self.top = max(self.top, src.top)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.nbytes for t in self.tensors())
 
 
 def _truncated_normal(shape, stddev: float, gen: torch.Generator):
@@ -149,6 +218,15 @@ class ProGen(nn.Module):
         this rank's positions ``grid.seq_slice(S * n)`` of each sequence,
         and the logits are theirs; every rank of the seq group calls
         forward together, as its collectives need."""
+        return self._logits(self._blocks(tokens, grid))
+
+    def features(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (batch, n) ints -> the final norm's output (batch, n,
+        dim) in the compute dtype: the states before the logits head."""
+        return self.norm(self._blocks(tokens), self.config.compute_dtype)
+
+    def _blocks(self, tokens: torch.Tensor, grid=None) -> torch.Tensor:
+        """The embedding and every block, up to the final norm."""
         n = tokens.shape[-1]
         if n % self.config.window_size:
             raise ValueError("sequence length must be a multiple of "
@@ -171,29 +249,32 @@ class ProGen(nn.Module):
             else:
                 x = x + attn(x, sin, cos, group)
                 x = x + ff(x, group)
-        return self._logits(x)
+        return x
 
     def init_cache(self, batch: int) -> DecodeCache:
-        """A fresh, zeroed decode state for ``batch`` rows at position 0."""
+        """A fresh decode state for ``batch`` rows, each at position 0."""
         dev = self.device
         return DecodeCache(
             attn=[a.new_cache(batch, dev) for a in self.attn],
             ff=[f.new_cache(batch, dev) for f in self.ff],
+            pos=torch.zeros(batch, dtype=torch.int64, device=dev),
         )
 
     def decode_step(self, tokens: torch.Tensor,
                     cache: DecodeCache) -> torch.Tensor:
-        """Feed the token at ``cache.pos`` of every row: tokens (batch,)
-        or (batch, 1) -> float32 logits (batch, num_tokens) for the next
-        position. Updates ``cache`` in place and advances its position."""
-        pos = cache.pos
-        if pos >= self.config.seq_len:
-            raise ValueError(f"decode position {pos} is past seq_len")
+        """Feed the token at each row's ``cache.pos``: tokens (batch,) or
+        (batch, 1) -> float32 logits (batch, num_tokens) for each row's
+        next position. Updates ``cache`` in place and advances every
+        row's position by one."""
+        c = self.config
+        if cache.top >= c.seq_len:
+            raise ValueError(f"decode position {cache.top} is past seq_len")
         x = self._embed(tokens.reshape(-1, 1))
-        sin, cos = self._tables(self.config.seq_len)
+        at = DecodeAt.of(cache.pos, *self._tables(c.seq_len), c.window_size)
         for attn, ff, ac, fc in zip(self.attn, self.ff, cache.attn,
                                     cache.ff):
-            x = x + attn.decode(x, sin, cos, pos, ac)
-            x = x + ff.decode(x, pos, fc)
-        cache.pos = pos + 1
+            x = x + attn.decode(x, at, ac)
+            x = x + ff.decode(x, at, fc)
+        cache.pos.add_(1)
+        cache.top += 1
         return self._logits(x)[:, 0]

@@ -25,6 +25,12 @@ CPU and on the card (the card's own generator, Philox, would give other
 numbers than the CPU's Mersenne Twister). ``noise=`` replaces the draws
 (tests hand in the JAX package's noise through it).
 
+``gumbel_step_dynamic`` is the serving engine's sampler: every knob a
+per-row tensor, both branches computed and then selected per row, equal
+token for token to ``gumbel_topk_step`` with that row's knobs.
+``template``/``frozen`` (``sample_fast``) constrain a decode to
+fixed-position infilling (``_constrain``).
+
 ``sample`` and ``sample_batched`` are the naive decoders, the JAX
 package's functions of those names: one full forward (through the
 kernels on the card) per drawn token instead of the cache. They take the
@@ -147,40 +153,129 @@ def _prepare_seq(config, prime, length: int, add_bos: bool):
     return np.pad(prime, widths), start
 
 
+def seeded_noise(seeds, draws, vocab: int) -> torch.Tensor:
+    """(rows, vocab) float32 Gumbel noise on the CPU: row i is draw
+    ``draws[i]`` of the stream seeded with ``seeds[i]``, from a CPU
+    generator seeded with ``draw_seed(seeds[i], draws[i])``. A row whose
+    seed is None is zeros (a slot with nothing to draw)."""
+    gen = torch.Generator()  # the CPU's, on every device
+    rows = []
+    for s, t in zip(seeds, draws, strict=True):
+        if s is None:
+            rows.append(torch.zeros(vocab))
+            continue
+        gen.manual_seed(draw_seed(s, t))
+        rows.append(gumbel_noise(gen, (vocab,)))
+    return torch.stack(rows)
+
+
 def _seeded_draws(row_seeds) -> Callable:
     """draw(t, logit): draw t of every row, (rows, vocab), on logit's
-    device. Each row's noise comes from a CPU generator seeded with
-    ``draw_seed(row_seed, t)``, whatever that device is."""
-    gen = torch.Generator()  # the CPU's, on every device
-
+    device, drawn on the CPU whatever that device is."""
     def draw(t: int, logit: torch.Tensor) -> torch.Tensor:
-        rows = []
-        for s in row_seeds:
-            gen.manual_seed(draw_seed(s, t))
-            rows.append(gumbel_noise(gen, logit.shape[-1:]))
-        return torch.stack(rows).to(logit.device)
+        return seeded_noise(row_seeds, [t] * len(row_seeds),
+                            logit.shape[-1]).to(logit.device)
 
     return draw
 
 
+def gumbel_step_dynamic(noise: torch.Tensor, logit: torch.Tensor,
+                        top_k: torch.Tensor, parity: torch.Tensor,
+                        temperature: torch.Tensor,
+                        top_p: torch.Tensor) -> torch.Tensor:
+    """One Gumbel-max draw per row with every knob a (rows,) tensor:
+    ``top_k`` int (0 = off), ``parity`` bool, ``temperature`` and
+    ``top_p`` float32 (``_TOP_P_OFF`` = off). Both branches are computed,
+    then selected per row. Equal to ``gumbel_topk_step`` with each row's
+    knobs: the k-th value of a descending sort is ``topk``'s minimum, and
+    the knob branch takes its threshold from the tempered logits, as
+    ``select_top_k`` does."""
+    kc = (top_k.clamp(1, logit.shape[-1]) - 1)[:, None]
+    k_off = (top_k <= 0)[:, None]
+
+    def kth(x):
+        return torch.sort(x, dim=-1, descending=True).values.gather(-1, kc)
+
+    # the parity branch, with the reference's quirk: filtered tokens
+    # compete at 0
+    keep = (logit > kth(logit)) | k_off
+    pick_parity = torch.argmax(torch.where(keep, logit, 0.0)
+                               + torch.where(keep, noise, 0.0), dim=-1)
+    lt = logit / temperature[:, None]
+    keep = select_top_p(lt, top_p[:, None]) & ((lt > kth(lt)) | k_off)
+    pick_knobs = torch.argmax(
+        torch.where(keep, lt, torch.finfo(lt.dtype).min) + noise, dim=-1)
+    return torch.where(parity, pick_parity, pick_knobs)
+
+
+def _validate_infill(template, frozen, length: int, num_tokens: int):
+    """(template, frozen) as (length,) int64 and bool numpy arrays, or
+    (None, None) when infilling is off. ``template`` pins token ids at
+    the positions where ``frozen`` is True."""
+    if (template is None) != (frozen is None):
+        raise ValueError("template and frozen must be given together")
+    if template is None:
+        return None, None
+    t = np.asarray(template, np.int64).reshape(-1)
+    f = np.asarray(frozen, bool).reshape(-1)
+    if t.shape[0] != length or f.shape[0] != length:
+        raise ValueError(
+            f"template/frozen must be (length={length},) arrays, got "
+            f"{t.shape} / {f.shape}"
+        )
+    if (t < 0).any() or (t >= num_tokens).any():
+        raise ValueError(f"template token ids must be in [0, {num_tokens})")
+    if ((t == 0) & f).any():
+        raise ValueError(
+            "frozen positions must pin a nonzero token id (0 is the "
+            "BOS/EOS/pad token: freezing it would end the sequence)"
+        )
+    return t, f
+
+
+def _constrain(sampled, logit, pos, template, frozen):
+    """The infill mask on one draw per row, written at positions ``pos``
+    (rows,): a frozen position takes the template token; at a free one a
+    drawn EOS (0) becomes the best non-EOS token, since an infill has a
+    fixed extent. A row whose mask freezes nothing keeps its draw."""
+    alt = torch.argmax(logit[:, 1:], dim=-1) + 1
+    sampled = torch.where(frozen.any(dim=-1) & (sampled == 0), alt, sampled)
+    at = pos[:, None]
+    return torch.where(frozen.gather(-1, at)[:, 0],
+                       template.gather(-1, at)[:, 0], sampled)
+
+
 @torch.inference_mode()
 def _decode_batched(model, seqs: torch.Tensor, start: int, length: int,
-                    top_k, parity, temperature, top_p, draw) -> torch.Tensor:
-    """seqs (B, length) primed up to ``start``; fills the rest in place."""
+                    top_k, parity, temperature, top_p, draw,
+                    infill=None) -> torch.Tensor:
+    """seqs (B, length) primed up to ``start``; fills the rest in place.
+    ``infill``: (template, frozen), each (B, length), or None."""
     cache = model.init_cache(seqs.shape[0])
     for p in range(start - 1):  # prefill by feeding the prime
         model.decode_step(seqs[:, p], cache)
     for t, p in enumerate(range(start - 1, length - 1)):
         logit = model.decode_step(seqs[:, p], cache)
-        seqs[:, p + 1] = gumbel_topk_step(
-            logit, top_k, draw(t, logit), parity, temperature, top_p
-        )
+        seqs[:, p + 1] = _draw(logit, top_k, draw(t, logit), parity,
+                               temperature, top_p, p + 1, infill)
     return _truncate_after_eos(seqs)
+
+
+def _draw(logit, top_k, noise, parity, temperature, top_p, p, infill):
+    """One draw per row for write position ``p``, constrained when
+    ``infill`` is given."""
+    sampled = gumbel_topk_step(logit, top_k, noise, parity, temperature,
+                               top_p)
+    if infill is None:
+        return sampled
+    pos = torch.full_like(sampled, p)
+    return _constrain(sampled, logit, pos, *infill)
 
 
 @torch.inference_mode()
 def _decode_naive(model, seqs: torch.Tensor, start: int, length: int,
-                  top_k, parity, temperature, top_p, draw) -> torch.Tensor:
+                  top_k, parity, temperature, top_p, draw,
+                  infill=None) -> torch.Tensor:
     """As ``_decode_batched``, with one full forward per draw. The
     buffer is padded to the model's seq_len, which the forward needs; the
     model is causal, so the padding changes no logit before it."""
@@ -189,9 +284,8 @@ def _decode_naive(model, seqs: torch.Tensor, start: int, length: int,
     buf[:, :length] = seqs
     for t, p in enumerate(range(start - 1, length - 1)):
         logit = model(buf)[:, p]
-        buf[:, p + 1] = gumbel_topk_step(
-            logit, top_k, draw(t, logit), parity, temperature, top_p
-        )
+        buf[:, p + 1] = _draw(logit, top_k, draw(t, logit), parity,
+                              temperature, top_p, p + 1, infill)
     return _truncate_after_eos(buf[:, :length])
 
 
@@ -202,7 +296,8 @@ def _truncate_after_eos(seqs: torch.Tensor) -> torch.Tensor:
 
 
 def _sample(row_seeds, model, primes, length, top_k, add_bos, temperature,
-            top_p, device, noise, decode=_decode_batched):
+            top_p, device, noise, decode=_decode_batched, template=None,
+            frozen=None):
     dev = resolve_device(device)
     if model.device != dev:
         raise ValueError(f"model is on {model.device}, not {dev}")
@@ -210,6 +305,11 @@ def _sample(row_seeds, model, primes, length, top_k, add_bos, temperature,
     parity = temperature == 1.0 and top_p is None
     seqs, start = _prepare_seq(model.config, primes, length, add_bos)
     seqs = torch.from_numpy(seqs).to(dev)
+    template, frozen = _validate_infill(template, frozen, length,
+                                        model.config.num_tokens)
+    infill = None if template is None else tuple(
+        torch.from_numpy(a).to(dev).expand(seqs.shape[0], -1)
+        for a in (template, frozen))
     if noise is None:
         draw = _seeded_draws(row_seeds)
     else:
@@ -218,7 +318,7 @@ def _sample(row_seeds, model, primes, length, top_k, add_bos, temperature,
                                    device=dev).reshape(logit.shape)
     return decode(
         model, seqs, start, length, top_k, parity, float(temperature),
-        _TOP_P_OFF if top_p is None else float(top_p), draw,
+        _TOP_P_OFF if top_p is None else float(top_p), draw, infill,
     )
 
 
@@ -235,15 +335,19 @@ def _batched_seeds(seed: int, primes):
 def sample_fast(seed: int, model, prime, length: int,
                 top_k: Optional[int] = 25, add_bos: bool = False,
                 temperature: float = 1.0, top_p: Optional[float] = None,
-                *, device="cuda", noise: Optional[Callable] = None):
+                template=None, frozen=None, *, device="cuda",
+                noise: Optional[Callable] = None):
     """KV-cache decode of one (length,) sequence continuing ``prime``.
-    ``noise(t)``, when given, returns draw t's (num_tokens,) Gumbel noise
-    in place of the seeded draws."""
+    ``template``/``frozen`` ((length,) arrays in buffer coordinates,
+    ``workloads/infill.py``) make it an infill: frozen positions emit the
+    template's token. ``noise(t)``, when given, returns draw t's
+    (num_tokens,) Gumbel noise in place of the seeded draws."""
     prime = np.asarray(prime)
     if prime.ndim != 1:
         raise ValueError(f"prime must be 1-D, got shape {prime.shape}")
     return _sample([seed], model, prime[None], length, top_k, add_bos,
-                   temperature, top_p, device, noise)[0]
+                   temperature, top_p, device, noise, template=template,
+                   frozen=frozen)[0]
 
 
 def sample_fast_batched(seed: int, model, primes, length: int,

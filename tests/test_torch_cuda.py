@@ -695,3 +695,80 @@ def test_cli_resume_is_bit_equal_on_the_card(dev, tmp_path, mixed):
     for name in ("mu", "nu"):
         for k, v in getattr(sa.optimizer, name).items():
             assert torch.equal(v, getattr(sb.optimizer, name)[k]), (name, k)
+
+
+def _serving_model(dev):
+    from progen_tpu_torch import ProGen, ProGenConfig
+
+    return ProGen(ProGenConfig(**SMALL, dtype="bfloat16"), device=dev,
+                  seed=0).eval()
+
+
+def test_engine_one_slot_is_bit_equal_to_sample_fast(dev):
+    """With one slot the pool decodes at batch 1, as sample_fast does, so
+    on the card too the streams are equal token for token: a top_k = 1
+    occupant that stops at once, then requests with knobs, an infill and
+    a chunked prime on its reused slot."""
+    import numpy as np
+
+    from progen_tpu_torch.sampling import sample_fast
+    from progen_tpu_torch.serving import Request, Scheduler, ServeEngine
+
+    model = _serving_model(dev)
+    tpl, frz = np.zeros(40, np.int64), np.zeros(40, bool)
+    frz[[1, 2, 9, 20, 33]] = True
+    tpl[frz] = [5, 6, 7, 8, 9]
+    reqs = [Request(id="eos", prime=[5, 6], length=20, top_k=1,
+                    add_bos=True, seed=1),
+            Request(id="knobs", prime=[3, 4, 5], length=48, add_bos=True,
+                    temperature=0.8, top_p=0.95, seed=2),
+            Request(id="infill", prime=[5, 6], length=40, add_bos=True,
+                    template=tpl, frozen=frz, seed=3),
+            Request(id="long", prime=list(range(1, 30)), length=60,
+                    top_k=None, seed=4)]
+    sched = Scheduler(ServeEngine(model, max_slots=1, max_len=64),
+                      prefill_chunk=8)
+    for r in reqs:
+        assert sched.submit(r) == (True, None)
+    _, comps = sched.run_to_completion(max_steps=1000)
+    got = {c.request_id: c.tokens for c in comps}
+    assert got["eos"].tolist()[:4] == [0, 5, 6, 0]
+    for r in reqs:
+        want = sample_fast(r.seed, model, r.prime, r.length, top_k=r.top_k,
+                           add_bos=r.add_bos, temperature=r.temperature,
+                           top_p=r.top_p, template=r.template,
+                           frozen=r.frozen, device=dev).cpu().numpy()
+        np.testing.assert_array_equal(got[r.id], want, err_msg=r.id)
+
+
+def test_embed_launches_one_forward_and_decode_none(dev):
+    """An embedding is one forward through the kernels (A1 once a layer,
+    L1 twice, L2 once a gMLP layer); prefill and decode steps launch no
+    kernel."""
+    from progen_tpu_torch.serving import Request, Scheduler, ServeEngine
+
+    model = _serving_model(dev)
+    kernels = (cuda_attention.local_attention_fwd, cuda_layers.norm_shift,
+               cuda_layers.sgu_mix_gate,
+               cuda_attention.local_attention_bwd_kv,
+               cuda_attention.local_attention_bwd_halo,
+               cuda_attention.local_attention_halo_fwd)
+
+    def counts():
+        return [fn.launches for fn in kernels]
+
+    sched = Scheduler(ServeEngine(model, max_slots=2, max_len=64))
+    sched.submit(Request(id="g", prime=[3, 4], length=40, seed=1))
+    before = counts()
+    sched.step()
+    sched.step()
+    assert counts() == before
+    sched.submit(Request(id="e", prime=[3, 4, 5], length=0, kind="embed"))
+    before = counts()
+    _, comps = sched.run_to_completion(max_steps=100)
+    c = model.config
+    assert [a - b for a, b in zip(counts(), before)] == [
+        c.depth, 2 * c.depth, c.global_mlp_depth, 0, 0, 0]
+    emb = next(x for x in comps if x.request_id == "e").embedding
+    assert emb.shape == (c.dim,) and bool(torch.isfinite(
+        torch.from_numpy(emb)).all())

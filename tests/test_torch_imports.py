@@ -58,7 +58,11 @@ def test_package_has_the_slice_modules():
                 "data._native", "data.tfrecord", "data.dataset",
                 "data.fasta", "checkpoint", "tracking", "cli",
                 "cli.generate_data", "cli.train", "cli.eval",
-                "cli.sample"):
+                "cli.sample", "serving", "serving.engine",
+                "serving.scheduler", "serving.journal",
+                "serving.prefix_cache", "serving.metrics",
+                "telemetry.registry", "telemetry.spans", "telemetry.trace",
+                "workloads.infill", "workloads.embeddings", "cli.serve"):
         assert f"progen_tpu_torch.{mod}" in names
 
 

@@ -160,7 +160,7 @@ class TestDecode:
             cache = pm.init_cache(2)
             steps = torch.stack([pm.decode_step(toks[:, p], cache)
                                  for p in range(32)], dim=1)
-        assert cache.pos == 32
+        assert cache.pos.tolist() == [32, 32]
         np.testing.assert_allclose(steps.numpy(), full.numpy(),
                                    **(F32 if dtype == "float32" else BF16))
 
@@ -193,7 +193,7 @@ class TestDecode:
         with torch.no_grad():
             pm.decode_step(torch.tensor([5]), cache)
         assert cache.attn[0].k is ring and ring.abs().sum() > 0
-        assert cache.attn[0].slot_pos[0].item() == 0
+        assert cache.attn[0].slot_pos[0, 0].item() == 0
         assert cache.ff[2].gate_history[:, 0].abs().sum() > 0
 
     def test_decode_past_seq_len_raises(self, setup):
