@@ -124,7 +124,34 @@ Phases, one line each:
      exactly once over the two, and each stream over both lives bit-equal
      to the first run's. It prints decode steps/s and tokens/s, TTFT p50
      and p99, prefill ms per fed token, the embedding's ms, the pool's
-     device bytes and the phase's seconds, beside the card.
+     device bytes and the phase's seconds, beside the card;
+ 10. workloads, the protein-design entry points at base.toml in bfloat16,
+     in build/chip_smoke_workloads/ (removed afterwards): A1, L1 and L2
+     first held against their plain versions at the phase's new shapes
+     (batch 32 at n = 1024; n = w = 512 at batch 8); the base model
+     written as a reference ckpt_*.pkl (Haiku names, by an inverse of the
+     converter's mapping kept in this script) and converted by cli.convert
+     in a child process, its parameters bit-equal to the model's;
+     run_batch_score on a synthetic FASTA (64 proteins with Uniref50-style
+     headers, lengths 64..1000, and 2 too long), batch 8: 8 batches, the 2
+     skipped, every record bit-equal to score_step on the same batch;
+     cli.batch_score in a child SIGKILLed by PROGEN_CHAOS=score/batch:kill@2
+     and a child that resumes: every id once, each record bit-equal to the
+     in-process run's; the mutagenesis scan of a 200-residue protein at
+     positions 0..31 (641 rows, 21 forwards of 32), 8 mutants and the wild
+     type against batch-1 references and the whole matrix against the
+     plain path; cli.scan --positions 0:8 on the converted checkpoint; a
+     pure-attention model at base widths (depth cut to 6) scoring 8 short
+     and 8 long records, so A1 runs at n = w, against the plain path; and
+     int8 serving: the calibration report, 4 streams at one slot bit-equal
+     to sample_fast on the dequantised weights, and the int8 and bfloat16
+     engines' decode rates at 8 slots in alternating runs. With the launch
+     counts set to 0 just before and read just after each counted run, the
+     scorer must launch A1 192, L1 384, L2 16, the scan A1 504, L1 1008, L2
+     42, cli.scan 6 forwards' and the n = w scorer 2 forwards' kernels. It
+     prints sequences/s and tokens/s, mutants/s, the conversion's bytes
+     and seconds, the int8 report, bytes and decode rates beside the
+     bfloat16 engine's, and the phase's seconds by part, beside the card.
 
 Phase 2 also holds A4 (forward and both backwards, with a halo) against
 its plain versions at long8k's shard shapes with 2 shards, and runs the
@@ -2224,6 +2251,554 @@ def phase_serve(cfg, gen_bound: float, card: str) -> dict:
     return out
 
 
+# phase 10: the protein-design workloads, the reference converter and int8
+# serving, at base.toml in bfloat16
+WL_SEQS, WL_BATCH, WL_LONG = 64, 8, (1100, 1500)  # the scorer's FASTA
+SCAN_LEN, SCAN_POSITIONS, SCAN_CHUNK = 200, 32, 32
+SCAN_FIXED = [(0, "W"), (7, "P"), (19, "C"), (31, "G")]  # (position, aa)
+# the scan's rows at batch 32 against the same mutant at batch 1: the two
+# batches round the bfloat16 products otherwise (phase 9's one-slot rule)
+SCAN_NLL_ATOL = 2e-2
+# a workload's NLLs on the kernel path against the plain path: phase 3's
+# scoring rule (measured 0.0023 nats at batch 8 on an H100)
+NLL_PLAIN_ATOL = 1e-2
+NW_DEPTH, NW_SHORT, NW_LONG = 6, (100, 400), (600, 1000)  # the n = w model
+INT8_SLOTS, INT8_MAX_LEN, INT8_PARITY = 8, 256, 4
+INT8_TIMED = 2  # timed runs of each engine, alternating
+
+
+def write_candidates(path: Path, seed: int) -> tuple:
+    """WL_SEQS proteins with Uniref50-style headers, lengths
+    CLI_MIN_LEN..CLI_MAX_LEN, and the WL_LONG records too long for the
+    model placed among them; returns (the ids in file order, the
+    too-long ones)."""
+    rng = np.random.default_rng(seed)
+    aas = np.array(list("ACDEFGHIKLMNPQRSTVWY"))
+    lengths = [int(rng.integers(CLI_MIN_LEN, CLI_MAX_LEN + 1))
+               for _ in range(WL_SEQS)]
+    at = (10, 40)  # where the too-long records go
+    for i, n in zip(at, WL_LONG):
+        lengths.insert(i, n)
+    ids = []
+    with path.open("w") as f:
+        for i, n in enumerate(lengths):
+            ids.append(f"UniRef50_B{i:07d}")
+            seq = "".join(rng.choice(aas, n))
+            f.write(f">{ids[-1]} Candidate protein n=1 Tax=Homo sapiens "
+                    f"TaxID=9606 RepID=B{i:07d}_HUMAN\n")
+            for k in range(0, n, 60):
+                f.write(seq[k:k + 60] + "\n")
+    return ids, [ids[i] for i in at]
+
+
+def haiku_reference(sd: dict, cfg) -> dict:
+    """The model's state dict as a reference (lucidrains/progen) Haiku
+    params dict of numpy arrays: the inverse of the converter's mapping,
+    kept here apart from the port. Haiku's ``w`` is (in, out), the
+    transpose of the port's weight."""
+    p = "pro_gen_base/~"
+
+    def a(key, transpose=False):
+        x = sd[key].detach().cpu().numpy()
+        return np.ascontiguousarray(x.T) if transpose else x
+
+    out = {f"{p}/embed": {"embeddings": a("embed")},
+           f"{p}/layer_norm": {"scale": a("norm.scale")},
+           f"{p}/linear": {"w": a("to_logits.weight", True),
+                           "b": a("to_logits.bias")}}
+    for i in range(cfg.depth):
+        at, ff = f"attn.{i}.", f"ff.{i}."
+        out[f"{p}/attn{i}/~/layer_norm"] = {"scale": a(at + "norm.scale")}
+        out[f"{p}/attn{i}/~/linear"] = {"w": a(at + "to_qkv.weight", True)}
+        out[f"{p}/attn{i}/~/linear_1"] = {"w": a(at + "to_out.weight", True),
+                                          "b": a(at + "to_out.bias")}
+        out[f"{p}/ff{i}/~/layer_norm"] = {"scale": a(ff + "norm.scale")}
+        out[f"{p}/ff{i}/~/linear"] = {"w": a(ff + "proj_in.weight", True),
+                                      "b": a(ff + "proj_in.bias")}
+        out[f"{p}/ff{i}/~/linear_1"] = {"w": a(ff + "proj_out.weight", True),
+                                        "b": a(ff + "proj_out.bias")}
+        if ff + "sgu.spatial_weights" in sd:
+            out[f"{p}/ff{i}/~/sgu"] = {
+                "spatial_weights": a(ff + "sgu.spatial_weights"),
+                "spatial_biases": a(ff + "sgu.spatial_biases")}
+            out[f"{p}/ff{i}/~/sgu/~/layer_norm"] = {
+                "scale": a(ff + "sgu.norm.scale")}
+            out[f"{p}/ff{i}/~/sgu/~/linear"] = {
+                "w": a(ff + "sgu.proj_out.weight", True),
+                "b": a(ff + "sgu.proj_out.bias")}
+    return out
+
+
+def slice_shape_checks(cfg) -> dict:
+    """A1, L1 and L2 against their plain versions at the shapes this phase
+    gives them first: batch 32 at n = 1024 (the scan's chunk), and n = w =
+    512 at batch 8 (the n = w bucket, one window whose previous window is
+    the phantom zeros; no L2 there, the model has no gMLP layer). Outside
+    the counted runs."""
+    from progen_tpu_torch.ops import cuda_attention, cuda_layers
+
+    dev, dt = torch.device("cuda"), cfg.compute_dtype
+    gen = torch.Generator(device=dev).manual_seed(10)
+
+    def randn(*shape, dtype=dt):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    out = {}
+    eps, w, half = cfg.layer_norm_epsilon, cfg.window_size, \
+        cfg.dim * cfg.ff_mult // 2
+    for b, n in ((SCAN_CHUNK, cfg.seq_len), (WL_BATCH, w)):
+        q, k, v = (randn(b, cfg.heads, n, cfg.dim_head) for _ in range(3))
+        out[f"A1 b{b} n{n}"] = check_close(
+            f"A1 at ({b}, {n})", cuda_attention.local_attention_fwd(
+                q, k, v, w), cuda_attention.local_attention_fwd_reference(
+                q, k, v, w), 1e-2, 1e-2)
+        x = randn(b, n, cfg.dim) * 2 + 0.5
+        scale = torch.rand(cfg.dim, generator=gen, device=dev) + 0.5
+        out[f"L1 b{b} n{n}"] = check_close(
+            f"L1 at ({b}, {n})", cuda_layers.norm_shift(x, scale, eps, dt),
+            cuda_layers.norm_shift_reference(x, scale, eps, dt), 1e-2, 1e-2)
+        del q, k, v, x
+    b, n = SCAN_CHUNK, cfg.seq_len
+    x, gate = randn(b, n, half), randn(b, n, half)
+    wts = randn(n, n, dtype=torch.float32) / n ** 0.5
+    bias = randn(n, 1, dtype=torch.float32)
+    scale = torch.rand(half, generator=gen, device=dev) + 0.5
+    out[f"L2 b{b} n{n}"] = check_close(
+        f"L2 at ({b}, {n})",
+        cuda_layers.sgu_mix_gate(x, gate, wts, bias, scale, eps, dt),
+        cuda_layers.sgu_mix_gate_reference(x, gate, wts, bias, scale, eps,
+                                           dt), 2e-2, 2e-2)
+    return {k: {m: v[m] for m in ("max_abs_err", "worst_over_tolerance")}
+            for k, v in out.items()}
+
+
+def forwards(cfg, n: int) -> dict:
+    """Launches of ``n`` full forwards of ``cfg``'s model."""
+    return {k: n * v for k, v in per_forward(cfg).items()}
+
+
+def shard_records(out_dir: Path) -> list:
+    """Every whole line of the output shards, parsed, in shard order (a
+    torn last line is left out)."""
+    recs = []
+    for shard in sorted(out_dir.glob("scores-*.jsonl")):
+        for ln in shard.read_text().splitlines():
+            try:
+                recs.append(json.loads(ln))
+            except ValueError:
+                pass
+    return recs
+
+
+def convert_reference(model, work: Path) -> tuple:
+    """Item 1: the model as a reference ckpt_*.pkl, converted by
+    ``cli.convert`` in a child process; the checkpoint's parameters must
+    be the model's, bit for bit."""
+    import pickle
+
+    from progen_tpu_torch.checkpoint import get_checkpoint_fns
+
+    cfg = model.config
+    src, ck = work / "ckpt_1700000000.pkl", work / "converted"
+    t = time.perf_counter()
+    with src.open("wb") as f:
+        pickle.dump({"next_seq_index": 123456,
+                     "params": haiku_reference(model.state_dict(), cfg),
+                     "optim_state": None, "model_config": cfg.to_dict(),
+                     "run_id": "reference-run"}, f, protocol=5)
+    pickle_s = time.perf_counter() - t
+    t = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "progen_tpu_torch.cli.convert", "--src",
+         str(src), "--dest", str(ck)], capture_output=True, text=True,
+        cwd=work, env=dict(os.environ, PYTHONPATH=str(REPO)), timeout=600)
+    convert_s = time.perf_counter() - t
+    if res.returncode != 0:
+        raise AssertionError(f"cli.convert: rc {res.returncode}: "
+                             f"{res.stderr[-2000:]}")
+    t = time.perf_counter()
+    pkg = get_checkpoint_fns(str(ck))[1].restore_params(device="cuda")
+    restore_s = time.perf_counter() - t
+    bad = [k for k, v in model.state_dict().items()
+           if not torch.equal(pkg.state[k], v)]
+    if bad or (pkg.next_seq_index, pkg.run_id) != (123456, "reference-run") \
+            or pkg.model_config != cfg.to_dict():
+        raise AssertionError(f"the converted checkpoint differs: {bad[:5]}, "
+                             f"{pkg.next_seq_index}, {pkg.run_id}")
+    out = dict(pickle_bytes=src.stat().st_size, pickle_write_s=pickle_s,
+               convert_child_s=convert_s, restore_params_s=restore_s,
+               checkpoint_bytes=sum(f.stat().st_size
+                                    for f in Path(pkg.path).iterdir()),
+               printed=res.stdout.strip()[-200:], params_bit_equal=True)
+    del pkg
+    src.unlink()
+    return ck, out
+
+
+def score_in_process(model, fasta: Path, ids: list, long_ids: list,
+                     out_dir: Path) -> tuple:
+    """Item 2: run_batch_score in this process, counted; every record
+    bit-equal to score_step on the same collated batch."""
+    from progen_tpu_torch.data.dataset import collate as collate_raw
+    from progen_tpu_torch.workloads.scoring import (
+        fasta_records,
+        run_batch_score,
+        score_step,
+    )
+
+    cfg = model.config
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    summary = run_batch_score(model, fasta_records(str(fasta)), str(out_dir),
+                              batch_size=WL_BATCH)
+    run_s = time.perf_counter() - t
+    counts = launch_counts()
+    bad = []
+    want = forwards(cfg, WL_SEQS // WL_BATCH)
+    if counts != want:
+        bad.append(f"the scorer launched {counts}, not {want}")
+    journal = [json.loads(ln) for ln in
+               (out_dir / "score_journal.jsonl").read_text().splitlines()]
+    skipped = [r["id"] for r in journal if r["op"] == "skip"]
+    if (summary["batches"], summary["n_scored"], skipped) != \
+            (WL_SEQS // WL_BATCH, WL_SEQS, long_ids):
+        bad.append(f"scored {summary['n_scored']} in {summary['batches']} "
+                   f"batches, skipped {skipped}")
+    recs = {r["id"]: r for r in shard_records(out_dir)}
+    raw = dict(fasta_records(str(fasta)))
+    scored = [i for i in ids if i not in long_ids]
+    for b in range(0, len(scored), WL_BATCH):
+        members = scored[b:b + WL_BATCH]
+        nll, lp, mask = score_step(model, collate_raw(
+            [raw[i] for i in members], cfg.seq_len), device="cuda")
+        nll, lp, mask = nll.cpu().numpy(), lp.cpu().numpy(), \
+            mask.cpu().numpy()
+        for j, rid in enumerate(members):
+            rec = recs.get(rid)
+            if rec is None or rec["nll"] != float(nll[j]) or \
+                    rec["logprobs"] != [float(x) for x in lp[j][mask[j]]]:
+                bad.append(f"{rid} differs from score_step")
+    if bad:
+        raise AssertionError("batch score: " + "; ".join(bad[:5]))
+    return recs, dict(
+        summary=summary, run_s=run_s, launches=counts,
+        sequences_per_s=WL_SEQS / run_s,
+        tokens_per_s=summary["tokens"] / run_s,
+        rows_bit_equal_score_step=len(recs))
+
+
+def score_cli_kill_resume(ck: Path, fasta: Path, work: Path,
+                          want: dict) -> dict:
+    """Item 3: cli.batch_score in a child SIGKILLed after its second
+    durable batch, then a child that resumes: every id once, each record
+    bit-equal to the in-process run's."""
+    import signal
+
+    out_dir = work / "cli_scores"
+
+    def child(chaos: str):
+        t = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "progen_tpu_torch.cli.batch_score",
+             "--checkpoint_path", str(ck), "--input", str(fasta),
+             "--out_dir", str(out_dir), "--batch_size", str(WL_BATCH)],
+            capture_output=True, text=True, cwd=work, timeout=600,
+            env=dict(os.environ, PYTHONPATH=str(REPO), PROGEN_CHAOS=chaos))
+        return res, time.perf_counter() - t
+
+    killed, killed_s = child("score/batch:kill@2")
+    durable = len(shard_records(out_dir))
+    done, done_s = child("")
+    bad = []
+    if killed.returncode != -signal.SIGKILL:
+        bad.append(f"the killed child exited {killed.returncode}: "
+                   f"{killed.stderr[-1000:]}")
+    if done.returncode != 0:
+        raise AssertionError(f"the resumed child exited {done.returncode}: "
+                             f"{done.stderr[-2000:]}")
+    summary = json.loads(done.stdout.strip().splitlines()[-1])
+    recs = shard_records(out_dir)
+    got_ids = [r["id"] for r in recs]
+    if summary["n_resumed"] < 2 * WL_BATCH:
+        bad.append(f"n_resumed {summary['n_resumed']}")
+    if sorted(got_ids) != sorted(want) or len(got_ids) != len(set(got_ids)):
+        bad.append(f"{len(got_ids)} records, {len(set(got_ids))} ids")
+    differ = [r["id"] for r in recs if r != want.get(r["id"])]
+    if differ:
+        gap = max(abs(r["nll"] - want[r["id"]]["nll"]) for r in recs
+                  if r["id"] in want)
+        bad.append(f"{len(differ)} records differ from the in-process run "
+                   f"(largest NLL gap {gap})")
+    if bad:
+        raise AssertionError("cli.batch_score: " + "; ".join(bad))
+    return dict(killed_child_s=killed_s, resumed_child_s=done_s,
+                durable_before_kill=durable, resumed_summary=summary,
+                shards=sorted(p.name for p in out_dir.glob("scores-*")),
+                records_bit_equal=len(recs))
+
+
+def scan_in_process(model, sequence: str) -> dict:
+    """Item 4: the scan at batch 32, counted; 8 mutants and the wild type
+    against batch-1 references; the whole matrix against the plain
+    path."""
+    from progen_tpu_torch.workloads.mutagenesis import (
+        AA_ALPHABET,
+        mutagenesis_scan,
+        reference_point_mutant_nll,
+    )
+
+    cfg = model.config
+    positions = list(range(SCAN_POSITIONS))
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    report = mutagenesis_scan(model, sequence, positions=positions,
+                              chunk=SCAN_CHUNK, top=20)
+    scan_s = time.perf_counter() - t
+    counts = launch_counts()
+    rows = SCAN_POSITIONS * len(AA_ALPHABET) + 1
+    n_fwd = -(-rows // SCAN_CHUNK)
+    bad = []
+    if counts != forwards(cfg, n_fwd):
+        bad.append(f"the scan launched {counts}, not {forwards(cfg, n_fwd)}")
+    picks = [(e["pos"], e["aa"]) for e in report["top"][:4]]
+    picks += [(p, aa) for p, aa in SCAN_FIXED if aa != sequence[p]]
+    gaps = {}
+    for p, aa in picks:
+        ref = reference_point_mutant_nll(model, sequence, position=p, aa=aa)
+        gaps[f"{sequence[p]}{p}{aa}"] = abs(
+            float(report["nll"][p, AA_ALPHABET.index(aa)]) - ref)
+    gaps["wild type"] = abs(report["wt_nll"] - reference_point_mutant_nll(
+        model, sequence, position=0, aa=sequence[0]))
+    if max(gaps.values()) > SCAN_NLL_ATOL:
+        bad.append(f"batch-1 references: {gaps}")
+    t = time.perf_counter()
+    with plain_path():
+        plain = mutagenesis_scan(model, sequence, positions=positions,
+                                 chunk=SCAN_CHUNK, top=0)
+    plain_s = time.perf_counter() - t
+    plain_gap = float(np.abs(report["nll"] - plain["nll"]).max())
+    plain_wt_gap = abs(report["wt_nll"] - plain["wt_nll"])
+    if max(plain_gap, plain_wt_gap) > NLL_PLAIN_ATOL:
+        bad.append(f"plain path: matrix {plain_gap}, wild type "
+                   f"{plain_wt_gap}")
+    if not np.isfinite(report["nll"]).all():
+        bad.append("non-finite NLLs")
+    if bad:
+        raise AssertionError("scan: " + "; ".join(bad))
+    return dict(report=report, launches=counts, forwards=n_fwd, rows=rows,
+                scan_s=scan_s, mutants_per_s=(rows - 1) / scan_s,
+                reference_gaps=gaps, reference_atol=SCAN_NLL_ATOL,
+                plain_gap=plain_gap, plain_wt_gap=plain_wt_gap,
+                plain_atol=NLL_PLAIN_ATOL, plain_scan_s=plain_s,
+                wt_nll=report["wt_nll"],
+                top=[{k: e[k] for k in ("pos", "wt", "aa", "delta_nll")}
+                     for e in report["top"][:4]])
+
+
+def scan_cli(cfg, ck: Path, sequence: str, work: Path,
+             want: np.ndarray) -> dict:
+    """Item 5: cli.scan on the converted checkpoint, counted; its JSON's
+    8 x 20 matrix within the scan's tolerance of item 4's."""
+    from progen_tpu_torch.cli import scan as cli_scan
+
+    out = work / "scan.json"
+    reset_counts()
+    t = time.perf_counter()
+    cli_scan.run(["--checkpoint_path", str(ck), "--sequence", sequence,
+                  "--positions", "0:8", "--top", "8", "--out", str(out)])
+    run_s = time.perf_counter() - t
+    counts = launch_counts()
+    doc = json.loads(out.read_text())
+    nll = np.asarray(doc["nll"])
+    n_fwd = -(-(8 * 20 + 1) // SCAN_CHUNK)
+    gap = float(np.abs(nll - want[:8]).max()) if nll.shape == (8, 20) \
+        else float("inf")
+    if nll.shape != (8, 20) or gap > SCAN_NLL_ATOL or len(doc["top"]) != 8 \
+            or counts != forwards(cfg, n_fwd):
+        raise AssertionError(f"cli.scan: shape {nll.shape}, gap {gap}, "
+                             f"{len(doc['top'])} top rows, launched "
+                             f"{counts}")
+    return dict(launches=counts, forwards=n_fwd, run_s=run_s, gap=gap)
+
+
+def score_n_equals_w(cfg, work: Path) -> dict:
+    """Item 6: a pure-attention model at base widths (depth cut to
+    NW_DEPTH) scores 8 short and 8 long records: the 512 bucket runs A1
+    at n = w. Each batch's NLLs against the plain path."""
+    from progen_tpu_torch import ProGen
+    from progen_tpu_torch.data.dataset import collate as collate_raw
+    from progen_tpu_torch.workloads.scoring import run_batch_score, score_step
+
+    ncfg = dataclasses.replace(cfg, global_mlp_depth=0, depth=NW_DEPTH)
+    model = ProGen(ncfg, device="cuda", seed=3).eval()
+    rng = np.random.default_rng(3)
+    aas = np.array(list("ACDEFGHIKLMNPQRSTVWY"))
+    recs = []
+    for i in range(WL_BATCH):
+        for tag, (lo, hi) in (("s", NW_SHORT), ("l", NW_LONG)):
+            seq = "".join(rng.choice(aas, int(rng.integers(lo, hi + 1))))
+            recs.append((f"{tag}{i}", ("# " + seq).encode()))
+    out_dir = work / "nw_scores"
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    summary = run_batch_score(model, recs, str(out_dir),
+                              batch_size=WL_BATCH)
+    run_s = time.perf_counter() - t
+    counts = launch_counts()
+    journal = [json.loads(ln) for ln in
+               (out_dir / "score_journal.jsonl").read_text().splitlines()]
+    buckets = [r["bucket"] for r in journal if r["op"] == "batch"]
+    got = {r["id"]: r["nll"] for r in shard_records(out_dir)}
+    gaps = {}
+    for tag, bucket in (("s", ncfg.window_size), ("l", ncfg.seq_len)):
+        members = [(rid, raw) for rid, raw in recs if rid[0] == tag]
+        with plain_path():
+            nll = score_step(model, collate_raw([r for _, r in members],
+                                                bucket), device="cuda")[0]
+        gaps[bucket] = max(abs(got[rid] - float(x)) for (rid, _), x
+                           in zip(members, nll.cpu().numpy()))
+    want = forwards(ncfg, 2)
+    if counts != want or sorted(buckets) != [ncfg.window_size,
+                                             ncfg.seq_len] \
+            or max(gaps.values()) > NLL_PLAIN_ATOL:
+        raise AssertionError(f"n = w: launched {counts} (want {want}), "
+                             f"buckets {buckets}, plain gaps {gaps}")
+    del model
+    return dict(depth=NW_DEPTH, buckets=buckets, launches=counts,
+                plain_gaps=gaps, run_s=run_s, summary=summary)
+
+
+def int8_requests() -> list:
+    """8 generate requests: primes of 4-11 tokens (each prime position is
+    fed at batch 1, a host-bound step, so long primes would spend the
+    phase on admission), lengths 64-92."""
+    from progen_tpu_torch.data.tokenizer import encode_tokens
+    from progen_tpu_torch.serving import Request
+
+    return [Request(id=f"q{i}", prime=encode_tokens(
+        PROTEINS[i][:4 + i]).astype(np.int64), length=64 + 4 * i,
+        add_bos=True, seed=300 + i) for i in range(8)]
+
+
+def int8_serving(model) -> dict:
+    """Item 7: the int8 engine's calibration, its one-slot streams against
+    sample_fast on the dequantised weights, and the int8 and bfloat16
+    engines' decode rates at 8 slots, alternating."""
+    from progen_tpu_torch import ProGen
+    from progen_tpu_torch.ops.quant import dequantize_tree
+    from progen_tpu_torch.sampling import sample_fast
+    from progen_tpu_torch.serving import Scheduler, ServeEngine
+
+    cfg = model.config
+    t = time.perf_counter()
+    engine = ServeEngine(model, max_slots=INT8_SLOTS, max_len=INT8_MAX_LEN,
+                         quantize_int8=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    report = {k: v for k, v in engine.quant_report.items() if k != "leaves"}
+    line("int8 calibration", **report)
+    reqs = int8_requests()
+
+    deq = ProGen(cfg, device="cuda", seed=None)
+    deq.load_state_dict(dequantize_tree(engine._q_params, engine._q_scales,
+                                        cfg.compute_dtype))
+    deq.eval()
+    t = time.perf_counter()
+    one = Scheduler(ServeEngine(model, max_slots=1, max_len=INT8_MAX_LEN,
+                                quantize_int8=True))
+    for r in reqs[:INT8_PARITY]:
+        one.submit(r)
+    comps = {c.request_id: c.tokens
+             for c in one.run_to_completion(max_steps=5000)[1]}
+    del one
+    equal = [r.id for r in reqs[:INT8_PARITY] if np.array_equal(
+        comps[r.id], sample_fast(r.seed, deq, r.prime, r.length, top_k=25,
+                                 add_bos=True, device="cuda").cpu().numpy())]
+    parity_s = time.perf_counter() - t
+    del deq
+    if len(equal) != INT8_PARITY:
+        raise AssertionError(f"int8 at one slot: only {equal} equal "
+                             "sample_fast on the dequantised weights")
+
+    bf16 = ServeEngine(model, max_slots=INT8_SLOTS, max_len=INT8_MAX_LEN)
+    runs = {"bf16": [], "int8": []}
+    t = time.perf_counter()
+    for name in ["bf16", "int8", "int8", "bf16"] * (INT8_TIMED // 2):
+        sched = Scheduler(engine if name == "int8" else bf16)
+        for r in reqs:
+            sched.submit(r)
+        sched.run_to_completion(max_steps=5000)
+        snap = sched.metrics.snapshot()
+        runs[name].append(dict(
+            decode_steps_per_s=snap["decode_steps"] / snap["decode_time_s"],
+            decode_tokens_per_s=snap["decode_tokens_per_s"],
+            decode_steps=snap["decode_steps"]))
+    timed_s = time.perf_counter() - t
+    return dict(calibration=report, build_s=build_s,
+                quantized_device_bytes=engine.quantized_nbytes,
+                slots1_bit_equal=len(equal), parity_s=parity_s, runs=runs,
+                timed_s=timed_s)
+
+
+def phase_workloads(cfg, score: dict, card: str) -> dict:
+    """Phase 10: the workloads at base.toml in bfloat16 (see the module
+    docstring), in a directory under build/ removed afterwards."""
+    import shutil
+
+    from progen_tpu_torch import ProGen
+
+    t_phase = time.perf_counter()
+    work = REPO / "build" / "chip_smoke_workloads"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    parts = {}  # seconds of each part of the phase
+
+    def part(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        parts[name] = time.perf_counter() - t
+        return out
+
+    try:
+        shapes = part("kernel_checks", slice_shape_checks, cfg)
+        model = ProGen(cfg, device="cuda", seed=0).eval()
+        ck, converted = part("convert", convert_reference, model, work)
+        fasta = work / "candidates.fasta"
+        ids, long_ids = write_candidates(fasta, CLI_SEED + 1)
+        recs, scored = part("score", score_in_process, model, fasta, ids,
+                            long_ids, work / "scores")
+        cli_score = part("score_cli", score_cli_kill_resume, ck, fasta, work,
+                         recs)
+        sequence = PROTEINS[6][:SCAN_LEN]
+        scanned = part("scan", scan_in_process, model, sequence)
+        report = scanned.pop("report")
+        cli_scan = part("scan_cli", scan_cli, cfg, ck, sequence, work,
+                        report["nll"])
+        nw = part("n_equals_w", score_n_equals_w, cfg, work)
+        int8 = part("int8", int8_serving, model)
+        del model
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = {k: scored["launches"][k] + scanned["launches"][k]
+                + cli_scan["launches"][k] + nw["launches"][k]
+                for k in scored["launches"]}
+    seconds = time.perf_counter() - t_phase
+    out = dict(
+        card=card, slice_shapes=shapes, convert=converted,
+        score={k: v for k, v in scored.items() if k != "summary"},
+        score_summary=scored["summary"],
+        score_line_sequences_per_s=score["sequences_per_s"],
+        score_cli=cli_score, scan=scanned, scan_cli=cli_scan,
+        n_equals_w=nw, int8=int8, launches=launches, parts_s=parts,
+        seconds=seconds, budget_s=180, over_budget=seconds > 180)
+    line("workloads", **{k: v for k, v in out.items()
+                         if k not in ("score_summary",)})
+    return out
+
+
 def check_training(run: dict) -> None:
     """Phase 6c: every loss and grad norm finite, no step refused, and a
     lower loss on the repeated batch after the steps than before."""
@@ -2297,17 +2872,20 @@ def main() -> int:
     result["cli"] = phase_cli(cfg, train)
     result["serve"] = phase_serve(
         cfg, 2 * result["generate"]["plain_vs_f32"] + 1e-3, card)
+    result["workloads"] = phase_workloads(cfg, result["score"], card)
 
     # each kernel's launches, summed over the paths driven with counts:
     # scoring + generation, the 3 train steps, the A3 step, the seqpar
     # ranks' 3 steps and A4 halo-backward step (the single-process
-    # comparison there is left out), the CLIs' steps and evals, and the
-    # serving engine's run
+    # comparison there is left out), the CLIs' steps and evals, the
+    # serving engine's run, and the workloads' scorer, scans and n = w
+    # scorer (their child processes count apart and are left out)
     paths = dict(inference=run["launches"], train=train["launches"],
                  halo_step=result["halo_step"]["launches"],
                  seqpar=result["seqpar"]["launches"],
                  cli=result["cli"]["launches"],
-                 serve=result["serve"]["launches"])
+                 serve=result["serve"]["launches"],
+                 workloads=result["workloads"]["launches"])
     counts = {k: sum(c[k] for c in paths.values()) for k in run["launches"]}
     line("launches", **paths, total=counts)
     if not all(counts.values()):

@@ -4,8 +4,13 @@ the JAX package's ``cli/sample.py``.
 The model is rebuilt from the checkpoint's stored config alone, the prime
 is byte-tokenised, the decode runs with BOS prepended, and what follows
 the prime is printed. Primes: ``"[tax=Mammalia] #"`` generates a
-sequence, ``"SEQ #"`` its annotations. ``--template`` and
-``--free_char`` (infilling) are not ported yet.
+sequence, ``"SEQ #"`` its annotations.
+
+Fixed-position infilling (``workloads/infill.py``): ``--template
+"MK?LV??G"`` keeps the non-``?`` characters verbatim and samples the
+free slots (``--free_char`` names the sentinel); the leading frozen run
+primes the decode, so ``--prime`` and ``--template`` exclude each other,
+and a template decodes one sequence.
 
 Run: python -m progen_tpu_torch.cli.sample --prime "[tax=Mammalia] #"
 """
@@ -24,6 +29,10 @@ from progen_tpu_torch.sampling import (
     sample_batched,
     sample_fast,
     sample_fast_batched,
+)
+from progen_tpu_torch.workloads.infill import (
+    infill_request_arrays,
+    parse_template,
 )
 
 
@@ -45,6 +54,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--num_samples", default=1, type=int,
                    help="decode this many sequences from the prime in one "
                         "batch")
+    p.add_argument("--template", default=None,
+                   help="infilling template: non-free characters are frozen "
+                        "verbatim, --free_char slots are sampled (replaces "
+                        "--prime; the frozen prefix primes the decode)")
+    p.add_argument("--free_char", default="?",
+                   help="the free-position sentinel inside --template")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -53,6 +68,21 @@ def run(argv=None) -> dict:
     """Sample; returns ``tokens`` ((length,), or (num_samples, length) on
     the device) and ``texts``, the decoded continuations."""
     args = parse_args(argv)
+    prime, length, infill = args.prime, None, {}
+    if args.template is not None:
+        if args.prime:
+            raise SystemExit("--template and --prime are mutually exclusive "
+                             "(the template's frozen prefix is the prime)")
+        if args.num_samples > 1:
+            raise SystemExit("--template decodes one sequence "
+                             "(--num_samples 1)")
+        toks, frz = parse_template(args.template, args.free_char)
+        prime_tokens, length, tpl, frz = infill_request_arrays(
+            toks, frz, add_bos=True)
+        prime = decode_tokens(prime_tokens)
+        infill = dict(template=tpl, frozen=frz)
+    else:
+        prime_tokens = encode_tokens(prime)
     dev = resolve_device(args.device)
     model, pkg = load_model(args.checkpoint_path, dev)
     config = model.config
@@ -60,7 +90,6 @@ def run(argv=None) -> dict:
     print(f"sequence length: {config.seq_len}")
     print(f"trained for {max(pkg.next_seq_index, 0):,} sequences")
 
-    prime_tokens = encode_tokens(args.prime)
     prime_length = len(prime_tokens) + 1  # + BOS
     knobs = dict(top_k=args.top_k, add_bos=True,
                  temperature=args.temperature, top_p=args.top_p, device=dev)
@@ -71,15 +100,15 @@ def run(argv=None) -> dict:
                          config.seq_len, **knobs)
         texts = [decode_tokens(row[prime_length:])
                  for row in tokens.cpu().numpy()]
-        print("\n", args.prime, "\n", "*" * 40)
+        print("\n", prime, "\n", "*" * 40)
         for text in texts:
             print(text, "\n", "-" * 40)
     else:
         single = sample if args.naive else sample_fast
-        tokens = single(args.seed, model, prime_tokens, config.seq_len,
-                        **knobs)
+        tokens = single(args.seed, model, prime_tokens,
+                        length or config.seq_len, **knobs, **infill)
         texts = [decode_tokens(tokens.cpu().numpy()[prime_length:])]
-        print("\n", args.prime, "\n", "*" * 40, "\n", texts[0])
+        print("\n", prime, "\n", "*" * 40, "\n", texts[0])
     return {"tokens": tokens, "texts": texts}
 
 

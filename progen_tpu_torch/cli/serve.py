@@ -39,8 +39,12 @@ slots finish; a second exits at once. ``--journal_dir DIR`` journals
 accepted requests and emitted tokens to DIR/journal.jsonl, and a later
 ``--replay DIR`` resumes every unfinished accepted request with its
 uninterrupted stream (a slot's draw t is ``draw_seed(seed, t)``, so the
-journal carries a draw offset, not a key). The flags of the JAX CLI that
-are not ported yet are refused with the ROADMAP item that carries them.
+journal carries a draw offset, not a key). ``--int8`` serves int8
+weight-quantised matrix products and prints the calibration line
+"int8 weights: ..." to stderr. ``PROGEN_CHAOS`` arms the fault sites
+(``serve/prefill``, ``serve/prefill_chunk``, ``serve/decode``). The flags
+of the JAX CLI that are not ported yet are refused with the ROADMAP item
+that carries them.
 
 Run: python -m progen_tpu_torch.cli.serve --checkpoint_path ./ckpts
 """
@@ -60,6 +64,7 @@ import numpy as np
 from progen_tpu_torch._device import resolve_device
 from progen_tpu_torch.cli.eval import load_model
 from progen_tpu_torch.data.tokenizer import decode_tokens, encode_tokens
+from progen_tpu_torch.resilience.chaos import install_from_env
 from progen_tpu_torch.serving import (
     PrefixCache,
     Request,
@@ -75,10 +80,8 @@ from progen_tpu_torch.workloads.infill import (
     parse_template,
 )
 
-_ITEM_3 = "ROADMAP queue 1 item 3 (int8 serving: measure, then decide)"
 _ITEM_6 = "ROADMAP queue 1 item 6 (the host-side stack)"
 NOT_PORTED = {
-    "--int8": _ITEM_3,
     "--socket": _ITEM_6, "--tcp": _ITEM_6, "--idle_timeout": _ITEM_6,
     "--prom_file": _ITEM_6, "--prom_port": _ITEM_6, "--heartbeat": _ITEM_6,
     "--reload_watch": _ITEM_6, "--reload_pin": _ITEM_6,
@@ -102,6 +105,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max-len", dest="max_len", default=None, type=int,
                    help="longest servable sequence (default: the model's "
                         "seq_len); also the per-request length default")
+    p.add_argument("--int8", dest="quantize_int8",
+                   action=argparse.BooleanOptionalAction, default=False,
+                   help="serve int8 weight-quantised matrix products "
+                        "(per-channel symmetric, dequantised on the device "
+                        "each step); prints a calibration report at load")
     p.add_argument("--prefill_chunk", default=0, type=int,
                    help="admit prompts N prime tokens per decode step "
                         "(0 = the whole prime at once); streams are the "
@@ -324,6 +332,9 @@ def run(argv=None) -> dict:
     returns the final metrics snapshot."""
     args = parse_args(argv)
     dev = resolve_device(args.device)
+    # the serving fault sites (serve/prefill, serve/prefill_chunk,
+    # serve/decode) arm from the environment alone
+    install_from_env()
     t0 = time.perf_counter()
     journal = (RequestJournal(os.path.join(args.journal_dir,
                                            "journal.jsonl"))
@@ -331,7 +342,14 @@ def run(argv=None) -> dict:
     model, pkg = load_model(args.checkpoint_path, dev)
     seq_len = model.config.seq_len
     engine = ServeEngine(model, max_slots=args.max_slots,
-                         max_len=min(args.max_len or seq_len, seq_len))
+                         max_len=min(args.max_len or seq_len, seq_len),
+                         quantize_int8=args.quantize_int8)
+    if engine.quant_report is not None:
+        r = engine.quant_report
+        print(f"int8 weights: {r['quantized_leaves']} kernels, "
+              f"{r['bytes_fp']} -> {r['bytes_int8']} bytes, "
+              f"calib logits max-abs-err {r['logits_max_abs_err']:.3g}",
+              file=sys.stderr)
     prefix_cache = (PrefixCache(args.prefix_cache_mb << 20)
                     if args.prefix_cache_mb else None)
     sched = Scheduler(engine, max_queue=args.max_queue, journal=journal,

@@ -19,9 +19,23 @@ and ``nu`` (``ScaleByAdamState``, wherever it sits in the chain's state)
 go through the params' leaf map and transposes into the port's
 ``MaskedAdamW.state_dict()`` form, and back as a plain
 ``{"count", "mu", "nu"}`` tree of numpy arrays.
+
+Reference checkpoints (lucidrains/progen, the JAX package's
+``convert.py``): one pickled dict ``{next_seq_index, params,
+optim_state, model_config, run_id}`` whose ``params`` is a Haiku tree
+keyed ``pro_gen_base/~/<module>``. ``reference_params_to_flax`` maps it
+onto the flax tree (the JAX package's mapping, copied), and
+``convert_checkpoint`` carries it through the bridge into a checkpoint
+of the port's ``checkpoint.py`` that ``cli.train`` resumes and
+``cli.sample``/``cli.batch_score``/``cli.scan``/``cli.serve`` load. The
+weights, ``next_seq_index``, ``model_config`` and ``run_id`` carry
+over; the reference's Adam moments do not (its optimizer chain differs
+from the masked AdamW), so they start at zero, as in the JAX package.
 """
 
 from __future__ import annotations
+
+import pickle
 
 import numpy as np
 import torch
@@ -218,3 +232,101 @@ def torch_opt_state_to_flax(state: dict, config: ProGenConfig,
                                             scan_layers),
             "nu": state_dict_to_flax_params(state["nu"], config,
                                             scan_layers)}
+
+
+def reference_params_to_flax(ref_params, depth: int) -> dict:
+    """Map the reference's Haiku param tree into the flax tree.
+
+    Orientations match throughout: Haiku's ``w`` is (in, out) like a
+    flax kernel, and the SGU's spatial weights are (out_pos, in_pos) in
+    both. Every leaf must be a numpy array: anything else (an unpickled
+    jax array needs jax) raises ValueError."""
+    prefix = "pro_gen_base/~"
+
+    def g(mod: str, name: str) -> np.ndarray:
+        leaf = ref_params[f"{prefix}/{mod}"][name]
+        if not isinstance(leaf, np.ndarray):
+            raise ValueError(
+                f"reference leaf {prefix}/{mod}/{name} is a "
+                f"{type(leaf).__module__}.{type(leaf).__name__}, not a numpy "
+                "array: convert the checkpoint's params to numpy "
+                "(jax.tree.map(np.asarray, params)) before progen_tpu_torch "
+                "reads it")
+        return leaf
+
+    out = {
+        "embed": {"embedding": g("embed", "embeddings")},
+        "ScaleNorm_0": {"norm": {"scale": g("layer_norm", "scale")}},
+        "to_logits": {"kernel": g("linear", "w"), "bias": g("linear", "b")},
+    }
+    for i in range(depth):
+        out[f"attn{i}"] = {
+            "ScaleNorm_0": {
+                "norm": {"scale": g(f"attn{i}/~/layer_norm", "scale")}},
+            "to_qkv": {"kernel": g(f"attn{i}/~/linear", "w")},
+            "to_out": {"kernel": g(f"attn{i}/~/linear_1", "w"),
+                       "bias": g(f"attn{i}/~/linear_1", "b")},
+        }
+        ff = {
+            "ScaleNorm_0": {
+                "norm": {"scale": g(f"ff{i}/~/layer_norm", "scale")}},
+            "proj_in": {"kernel": g(f"ff{i}/~/linear", "w"),
+                        "bias": g(f"ff{i}/~/linear", "b")},
+            "proj_out": {"kernel": g(f"ff{i}/~/linear_1", "w"),
+                         "bias": g(f"ff{i}/~/linear_1", "b")},
+        }
+        if f"{prefix}/ff{i}/~/sgu" in ref_params:
+            ff["sgu"] = {
+                "ScaleNorm_0": {
+                    "norm": {"scale": g(f"ff{i}/~/sgu/~/layer_norm",
+                                        "scale")}},
+                "spatial_weights": g(f"ff{i}/~/sgu", "spatial_weights"),
+                "spatial_biases": g(f"ff{i}/~/sgu", "spatial_biases"),
+                "proj_out": {"kernel": g(f"ff{i}/~/sgu/~/linear", "w"),
+                             "bias": g(f"ff{i}/~/sgu/~/linear", "b")},
+            }
+        out[f"ff{i}"] = ff
+    return out
+
+
+def load_reference_package(src: str) -> dict:
+    """Read a reference ``ckpt_*.pkl`` with the standard library's pickle,
+    as the JAX package does. Unpickling runs code named in the file, so
+    read only checkpoints you trust. A pickle whose objects need a
+    package this machine lacks (jax, haiku, optax) raises ValueError."""
+    with open(src, "rb") as f:
+        try:
+            package = pickle.load(f)
+        except ImportError as e:
+            raise ValueError(
+                f"{src}: the pickle holds objects of a package that is not "
+                f"installed ({e}); progen_tpu_torch reads reference "
+                "checkpoints whose leaves are numpy arrays") from e
+    if not isinstance(package, dict) or not {"params", "model_config"} \
+            <= package.keys():
+        raise ValueError(f"{src}: not a reference checkpoint (a dict with "
+                         "params and model_config)")
+    return package
+
+
+def convert_checkpoint(src: str, dest: str, *, device="cuda") -> str:
+    """Read one reference ``ckpt_*.pkl`` and write a checkpoint of the
+    port's format under ``dest``, building the model on ``device``.
+    Returns the written checkpoint's directory."""
+    from progen_tpu_torch.checkpoint import Package, get_checkpoint_fns
+    from progen_tpu_torch.models.progen import ProGen
+    from progen_tpu_torch.training.optimizer import (
+        MaskedAdamW,
+        OptimizerConfig,
+    )
+    from progen_tpu_torch.training.state import TrainState
+
+    package = load_reference_package(src)
+    config = ProGenConfig.from_dict(package["model_config"])
+    tree = reference_params_to_flax(package["params"], config.depth)
+    model = ProGen(config, device=device, seed=None)
+    model.load_state_dict(flax_params_to_state_dict(tree, config))
+    state = TrainState(0, model, MaskedAdamW(model, OptimizerConfig()))
+    return get_checkpoint_fns(dest)[2](Package(
+        next_seq_index=int(package.get("next_seq_index", 0)), state=state,
+        model_config=config.to_dict(), run_id=package.get("run_id")))

@@ -367,13 +367,15 @@ def sample_fast_batched(seed: int, model, primes, length: int,
 def sample(seed: int, model, prime, length: int,
            top_k: Optional[int] = 25, add_bos: bool = False,
            temperature: float = 1.0, top_p: Optional[float] = None,
-           *, device="cuda", noise: Optional[Callable] = None):
+           template=None, frozen=None, *, device="cuda",
+           noise: Optional[Callable] = None):
     """``sample_fast`` by one full forward per drawn token."""
     prime = np.asarray(prime)
     if prime.ndim != 1:
         raise ValueError(f"prime must be 1-D, got shape {prime.shape}")
     return _sample([seed], model, prime[None], length, top_k, add_bos,
-                   temperature, top_p, device, noise, _decode_naive)[0]
+                   temperature, top_p, device, noise, _decode_naive,
+                   template=template, frozen=frozen)[0]
 
 
 def sample_batched(seed: int, model, primes, length: int,

@@ -30,8 +30,17 @@ noise is drawn; everything else of the pool lies on the device.
 
 There is no compilation here, so the JAX engine's
 ``decode_compile_count``/``prefill_compile_count`` have no counterpart.
-int8 serving (``quantize_int8``) is not ported: the JAX path relies on
-XLA fusing the dequantisation into the matrix products.
+
+int8 serving (``quantize_int8``): the matrix-product weights are kept on
+the device as int8 with per-output-channel scales (``ops/quant.py``),
+beside the model's full-precision weights, which the embedding reads.
+Every decode step, and every prefill chunk, dequantises them into the
+compute dtype and runs the shared step with them in place of the model's
+own (``torch.func.functional_call``), as the JAX engine's int8 programs
+run ``dequantize_tree`` and then the shared body; the dequantised weights
+live for that call only. ``quant_report`` holds the JAX engine's
+calibration: each leaf's weight error and the worst logit gap over a
+fixed prompt through a fresh cache.
 """
 
 from __future__ import annotations
@@ -41,8 +50,10 @@ from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from progen_tpu_torch.models.progen import DecodeCache
+from progen_tpu_torch.ops.quant import dequantize_tree, quantize_tree
 from progen_tpu_torch.sampling import (
     _TOP_P_OFF,
     _constrain,
@@ -59,9 +70,25 @@ from progen_tpu_torch.workloads.embeddings import bucket_length, embed_step
 class PreparedParams(NamedTuple):
     """A checkpoint's parameters, checked against the served model and on
     its device (``ServeEngine.prepare_params``), waiting for
-    ``commit_params`` between decode steps."""
+    ``commit_params`` between decode steps; under int8 serving also
+    their quantised weights, scales and calibration report."""
 
     params: dict
+    q_params: Optional[dict] = None
+    q_scales: Optional[dict] = None
+    quant_report: Optional[dict] = None
+
+
+class _DecodeCall(nn.Module):
+    """The model's ``decode_step`` as a module's forward, so
+    ``torch.func.functional_call`` can run it with other weights."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, tokens, cache):
+        return self.model.decode_step(tokens, cache)
 
 
 @dataclasses.dataclass
@@ -127,12 +154,6 @@ class ServeEngine:
     def __init__(self, model, *, max_slots: int = 8,
                  max_len: Optional[int] = None,
                  quantize_int8: bool = False):
-        if quantize_int8:
-            raise ValueError(
-                "int8 serving is not ported (ROADMAP queue 1 item 3): the "
-                "JAX path leans on XLA fusing the dequantisation into the "
-                "matrix products, which eager PyTorch does not do"
-            )
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
         seq_len = model.config.seq_len
@@ -169,14 +190,84 @@ class ServeEngine:
         self._cur = [0] * s  # host mirror of slots.cur
         self._targets = [n] * s  # host mirror for collect()
         self._prefix_cache = None
+        self._call = _DecodeCall(model)
+        self.quantize_int8 = bool(quantize_int8)
+        self.quant_report = None
+        self._q_params = self._q_scales = None
+        if self.quantize_int8:
+            params = model.state_dict()
+            self._q_params, self._q_scales, leaves = quantize_tree(
+                params, model.config)
+            self.quant_report = self._calibrate(
+                leaves, params, self._q_params, self._q_scales)
+
+    # ----- int8 weights ---
+
+    def _dequantized(self, q_params: dict, q_scales: dict) -> dict:
+        """The quantised weights in the compute dtype, by name, for one
+        call."""
+        deq = dequantize_tree({k: q_params[k] for k in q_scales}, q_scales,
+                              self.model.config.compute_dtype)
+        return {f"model.{k}": v for k, v in deq.items()}
+
+    def _decoder(self):
+        """The decode step to run now: the model's own, or under int8
+        serving the same step with freshly dequantised weights in place
+        of the model's."""
+        if not self.quantize_int8:
+            return self.model.decode_step
+        weights = self._dequantized(self._q_params, self._q_scales)
+        return lambda tokens, cache: torch.func.functional_call(
+            self._call, weights, (tokens, cache))
+
+    @torch.inference_mode()
+    def _calibrate(self, leaves: list, params: dict, q_params: dict,
+                   q_scales: dict) -> dict:
+        """The int8 path's accuracy record: each quantised leaf's weight
+        max-abs-error, and the worst logit max-abs-error of the
+        dequantised weights against ``params`` over the fixed prompt
+        (1, 7, 23, 4) fed through a fresh cache (the op sequence decode
+        runs). It takes the weights explicitly, so a weight swap can
+        calibrate candidate weights while the live ones keep serving."""
+        full = {f"model.{k}": v for k, v in params.items()}
+        deq = {**full, **self._dequantized(q_params, q_scales)}
+        cache_a, cache_b = self.fresh_cache.clone(), self.fresh_cache.clone()
+        worst = 0.0
+        for tok in (1, 7, 23, 4):
+            t = torch.full((1, 1), tok, dtype=torch.long, device=self.device)
+            la = torch.func.functional_call(self._call, full, (t, cache_a))
+            lb = torch.func.functional_call(self._call, deq, (t, cache_b))
+            worst = max(worst, float((la.float() - lb.float()).abs().max()))
+        return {
+            "bits": 8,
+            "scheme": "per-channel symmetric, weights only",
+            "quantized_leaves": len(leaves),
+            "bytes_fp": sum(leaf["bytes_fp"] for leaf in leaves),
+            "bytes_int8": sum(leaf["bytes_int8"] for leaf in leaves),
+            "weight_max_abs_err": max(
+                (leaf["max_abs_err"] for leaf in leaves), default=0.0),
+            "logits_max_abs_err": worst,
+            "leaves": leaves,
+        }
+
+    @property
+    def quantized_nbytes(self) -> int:
+        """Device bytes of the int8 weights and their scales (0 when the
+        engine serves the model's own weights)."""
+        if not self.quantize_int8:
+            return 0
+        return sum(self._q_params[k].nbytes + v.nbytes
+                   for k, v in self._q_scales.items())
 
     # ----- weight swap ---
 
+    @torch.inference_mode()
     def prepare_params(self, state_dict: dict) -> PreparedParams:
         """Check a restored state dict against the served model (the same
         names, and each tensor's shape and dtype) and move it to the
-        model's device. Anything else raises ValueError: a model of
-        another shape needs a new engine. Touches no engine state."""
+        model's device; under int8 serving quantise and calibrate it
+        again. Anything else raises ValueError: a model of another shape
+        needs a new engine. Touches no engine state."""
         live = self.model.state_dict()
         if set(state_dict) != set(live):
             missing = sorted(set(live) - set(state_dict))
@@ -193,15 +284,23 @@ class ServeEngine:
                     f"{tuple(cand.shape)}/{cand.dtype}, the served model's "
                     f"is {tuple(t.shape)}/{t.dtype}"
                 )
-        return PreparedParams({k: v.to(self.device)
-                               for k, v in state_dict.items()})
+        params = {k: v.to(self.device) for k, v in state_dict.items()}
+        if not self.quantize_int8:
+            return PreparedParams(params)
+        q_params, q_scales, leaves = quantize_tree(params, self.model.config)
+        return PreparedParams(params, q_params, q_scales, self._calibrate(
+            leaves, params, q_params, q_scales))
 
     def commit_params(self, prepared: PreparedParams) -> None:
-        """Copy the prepared weights into the served model, between two
-        decode steps. Requests in flight go on with their caches; the
-        prefix cache's snapshots were computed under the old weights and
-        are dropped."""
+        """Copy the prepared weights into the served model (and its int8
+        weights into place), between two decode steps. Requests in flight
+        go on with their caches; the prefix cache's snapshots were
+        computed under the old weights and are dropped."""
         self.model.load_state_dict(prepared.params)
+        if self.quantize_int8:
+            self._q_params = prepared.q_params
+            self._q_scales = prepared.q_scales
+            self.quant_report = prepared.quant_report
         if self._prefix_cache is not None:
             self._prefix_cache.clear()
 
@@ -293,8 +392,9 @@ class ServeEngine:
     def _feed(self, pending: PendingPrefill, hi: int) -> None:
         """Feed prime positions ``pending.pos..hi-1`` through the pending
         batch-1 cache, one token a step, as ``sample_fast`` primes."""
+        step = self._decoder()
         for p in range(pending.pos, hi):
-            self.model.decode_step(pending.tokens[p:p + 1], pending.cache)
+            step(pending.tokens[p:p + 1], pending.cache)
         pending.pos = hi
 
     def _scatter(self, pending: PendingPrefill) -> None:
@@ -333,13 +433,15 @@ class ServeEngine:
         positions (``start``). The slot's stream is
         ``sample_fast(seed, model, prime, length, ...)``'s from draw
         ``draw_offset`` on. ``template``/``frozen`` ((length,) arrays)
-        make it an infill. ``request_id`` labels the span only."""
-        pending = self._pending(
-            slot, prime, length, top_k=top_k, add_bos=add_bos,
-            temperature=temperature, top_p=top_p, seed=seed,
-            draw_offset=draw_offset, request_id=request_id,
-            template=template, frozen=frozen)
-        self.advance_prefill(pending)
+        make it an infill. ``request_id`` labels the spans only."""
+        with span("serve/prefill", slot=int(slot),
+                  request_id="" if request_id is None else str(request_id)):
+            pending = self._pending(
+                slot, prime, length, top_k=top_k, add_bos=add_bos,
+                temperature=temperature, top_p=top_p, seed=seed,
+                draw_offset=draw_offset, request_id=request_id,
+                template=template, frozen=frozen)
+            self.advance_prefill(pending)
         return pending.start
 
     @torch.inference_mode()
@@ -352,18 +454,21 @@ class ServeEngine:
         ``prefill`` and no model work yet; ``advance_prefill`` feeds it
         between decode steps. With a prefix cache attached, the deepest
         cached prefix of the feed region seeds it at that depth. The
-        stream equals ``prefill``'s with the same arguments."""
-        pending = self._pending(
-            slot, prime, length, top_k=top_k, add_bos=add_bos,
-            temperature=temperature, top_p=top_p, seed=seed,
-            draw_offset=draw_offset, request_id=request_id,
-            template=template, frozen=frozen)
-        if self._prefix_cache is not None:
-            depth, snap = self._prefix_cache.lookup(pending.row,
-                                                    pending.feed_len)
-            if snap is not None:
-                pending.cache = snap
-                pending.pos = pending.hit_depth = int(depth)
+        stream equals ``prefill``'s with the same arguments. The
+        ``serve/prefill`` span marks the admission's start."""
+        with span("serve/prefill", slot=int(slot),
+                  request_id="" if request_id is None else str(request_id)):
+            pending = self._pending(
+                slot, prime, length, top_k=top_k, add_bos=add_bos,
+                temperature=temperature, top_p=top_p, seed=seed,
+                draw_offset=draw_offset, request_id=request_id,
+                template=template, frozen=frozen)
+            if self._prefix_cache is not None:
+                depth, snap = self._prefix_cache.lookup(pending.row,
+                                                        pending.feed_len)
+                if snap is not None:
+                    pending.cache = snap
+                    pending.pos = pending.hit_depth = int(depth)
         return pending
 
     @torch.inference_mode()
@@ -406,7 +511,7 @@ class ServeEngine:
         # a dead slot decodes at position 0; its row is reset on admission
         sl.cache.place_(torch.where(live, sl.cur, 0), top=max(
             (c for c, on in zip(self._cur, self._live) if on), default=0))
-        logits = self.model.decode_step(toks, sl.cache)
+        logits = self._decoder()(toks, sl.cache)
         noise = seeded_noise(
             [s if on else None for s, on in zip(sl.seed, self._live)],
             sl.draws, logits.shape[-1]).to(self.device)

@@ -1,8 +1,9 @@
 """FIFO admission scheduling for the slot-pool engine.
 
 The port of the JAX package's ``serving/scheduler.py``, without the
-router's ``release`` and the chaos site, which come with the host-side
-stack.
+router's ``release``, which comes with the host-side stack. Each decode
+step passes the ``serve/decode`` fault-injection site
+(``resilience/chaos.py``).
 
 Continuous batching in the Orca (OSDI '22) sense: admission happens at
 token-iteration granularity — every ``step()`` first drains the FIFO
@@ -51,6 +52,7 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
+from progen_tpu_torch.resilience.chaos import maybe_inject
 from progen_tpu_torch.serving.engine import ServeEngine
 from progen_tpu_torch.serving.metrics import ServingMetrics
 from progen_tpu_torch.telemetry.spans import get_telemetry
@@ -539,6 +541,10 @@ class Scheduler:
         embed_done, self._embed_done = self._embed_done, []
         if not self._active:
             return [], embed_done
+        # chaos site (PROGEN_CHAOS="serve/decode:kill@N"): decode has no
+        # span of its own (a span a token would swamp the trace), so the
+        # injector is called directly
+        maybe_inject("serve/decode")
         t0 = self._clock()
         sampled, was_live, finished = self.engine.decode_step()
         t1 = self._clock()

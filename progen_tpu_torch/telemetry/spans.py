@@ -10,7 +10,9 @@ counterpart of ``jax.named_scope``).
 
 The module-level ``span()``/``configure()`` pair drives one
 process-global ``Telemetry``, so callees open spans without a handle
-passed down. With no sink configured, records are dropped.
+passed down. With no sink configured, records are dropped. Every span's
+entry calls the hooks in ``SPAN_ENTRY_HOOKS`` with its name: the fault
+injector (``resilience/chaos.py``) registers there.
 """
 
 from __future__ import annotations
@@ -32,6 +34,13 @@ def host_index() -> int:
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank()
     return 0
+
+
+# span-entry hooks: called with the span name after the B record is
+# emitted, inside the span's try block, so a hook that raises reaches the
+# span's caller while the E record still closes the span. The chaos
+# injector registers here; an empty list is a no-op.
+SPAN_ENTRY_HOOKS: list = []
 
 
 class EventLog:
@@ -92,6 +101,8 @@ class Telemetry:
         self.emit({"ev": "B", **head, "ts": time.time(), **attrs})
         t0 = time.perf_counter()
         try:
+            for hook in SPAN_ENTRY_HOOKS:
+                hook(name)
             with torch.profiler.record_function(name):
                 yield
         finally:

@@ -62,7 +62,10 @@ def test_package_has_the_slice_modules():
                 "serving.scheduler", "serving.journal",
                 "serving.prefix_cache", "serving.metrics",
                 "telemetry.registry", "telemetry.spans", "telemetry.trace",
-                "workloads.infill", "workloads.embeddings", "cli.serve"):
+                "workloads.infill", "workloads.embeddings", "cli.serve",
+                "workloads", "workloads.mutagenesis", "resilience",
+                "resilience.chaos", "resilience.retry", "ops.quant",
+                "cli.batch_score", "cli.scan", "cli.convert"):
         assert f"progen_tpu_torch.{mod}" in names
 
 

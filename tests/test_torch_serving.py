@@ -454,8 +454,6 @@ class TestEngine:
 
     def test_rejects_what_it_cannot_serve(self, setup):
         _, _, pm = setup
-        with pytest.raises(ValueError, match="int8"):
-            ServeEngine(pm, quantize_int8=True)
         for bad in (dict(max_slots=0), dict(max_len=1), dict(max_len=33)):
             with pytest.raises(ValueError):
                 ServeEngine(pm, **bad)
