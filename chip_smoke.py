@@ -73,8 +73,9 @@ Phases, one line each:
      Two ranks share one card here (NCCL puts one rank on a card), so
      their step time is a record of the path, not a scaling number;
   8. cli, the entry points a user runs, called in this process through
-     their ``run(argv)`` at base.toml with --mixed_precision, in
-     build/chip_smoke_cli/ (removed afterwards): generate_data writes
+     their ``run(argv)`` at base.toml's widths with its depth cut to 6
+     (CLI_DEPTH) and --mixed_precision, in build/chip_smoke_cli/
+     (removed afterwards): generate_data writes
      TFRecord shards from a synthetic FASTA (512 proteins, Uniref50-style
      headers, lengths 64..1000, from a numpy seed); cli.train takes 4
      steps (batch 4 x 4, checkpoint and validate every 2, a sample at step
@@ -151,7 +152,39 @@ Phases, one line each:
      42, cli.scan 6 forwards' and the n = w scorer 2 forwards' kernels. It
      prints sequences/s and tokens/s, mutants/s, the conversion's bytes
      and seconds, the int8 report, bytes and decode rates beside the
-     bfloat16 engine's, and the phase's seconds by part, beside the card.
+     bfloat16 engine's, and the phase's seconds by part, beside the card;
+ 11. grid, on 2 ranks spawned here that share the card over gloo, started
+     once (the kernels built in this process first; A1, A2 and A3 held
+     against their plain versions at large.toml's shapes on a model rank,
+     (2, 7, 1024, 128) at window 512, with their times, bound, SDPA's
+     time and ptxas's spill bytes at d = 128, and L1 and L2 at large's
+     widths). Each rank runs in turn, with its launch counts set to 0
+     just before each part and read per step: tensor parallelism at
+     configs/model/large.toml (dim 1792, depth 24, 14 heads of 128,
+     1,223,815,168 parameters, bfloat16; grid data 1 x model 2): 3 steps
+     of make_train_step(grid) on (2, 2, 1025) random tokens, each rank
+     launching A1 96, A2 48, L1 192 and L2 8 times a step; rank 0 then
+     takes the same 3 steps alone in bfloat16 and in float32 from the
+     same weights and holds the grid's losses, first gradients (gathered
+     whole) and parameter changes against them by phase 7's rule
+     (SEQPAR_*; the gradient cosine by TP_COS_RULE: tensor parallelism
+     rounds its row-parallel sums otherwise than one process, see
+     tools/tp_rounding.py); the float32 form of the rule at base widths with depth
+     cut to 4; ZeRO-1 on data 2 x model 1 at base.toml, 3 steps on
+     (2, 4, 1025), bit-equal to the same ranks without it, each rank's
+     moment bytes halved; GPipe and then 1F1B on 2 stages (11 uniform
+     layers each, the gMLP layers and the head on the last) with 4
+     microbatches of (1, 8, 1025), each held against one process by
+     phase 7's rule and 1F1B's first gradients against GPipe's, each
+     stage's launches exact; and cli.train --mesh_model 2 --dist_backend
+     gloo --mixed_precision at base.toml on the synthetic FASTA of phase
+     8 (batch 4 x 1, 3 steps, its cadenced sample cut to 32 tokens):
+     the coordinator's checkpoint must hold each rank's parameter shards
+     bit for bit (sha256), and the single-process cli.train resumes it
+     for 1 step. It prints each path's step ms, tokens/s, the model
+     group's all-reduce ms per step, peak bytes per rank and the phase's
+     seconds by part, beside the card. Two ranks share one card here, so
+     their step times record the path, not scaling.
 
 Phase 2 also holds A4 (forward and both backwards, with a halo) against
 its plain versions at long8k's shard shapes with 2 shards, and runs the
@@ -1519,6 +1552,10 @@ def phase_seqpar(cfg, card: str) -> dict:
 # phase 8: the entry points a user runs, at base.toml in bfloat16
 CLI_SEQS, CLI_MIN_LEN, CLI_MAX_LEN = 512, 64, 1000  # the synthetic FASTA
 CLI_FRESH_STEPS, CLI_RESUME_STEPS = 4, 2
+# the CLIs' model: base.toml's widths with its depth cut from 24 to 6, to
+# keep the whole script inside its time limit (its three 1000-token
+# decodes and 4.8 GB checkpoints took most of the phase's 307 s at 24)
+CLI_DEPTH = 6
 CLI_PRIME = "[tax=Homo sapiens] #"
 CLI_SEED = 0  # the FASTA's, the ETL's, the model's; the sample's + 7
 TAXA = [("Homo sapiens", 9606), ("Mus musculus", 10090),
@@ -1571,8 +1608,8 @@ def padded_share(records, seq_len: int) -> float:
 def counted_steps(make_step, counts: list):
     """make_train_step wrapped to record each step's launches in
     ``counts``."""
-    def make():
-        step = make_step()
+    def make(*args, **kw):
+        step = make_step(*args, **kw)
 
         def counted(state, batch):
             before = launch_counts()
@@ -1632,14 +1669,24 @@ def check_quarantine(ck: Path) -> dict:
     return dict(quarantined=quarantined.name, fell_back_to=before.name)
 
 
+def cut_model_toml(path: Path, depth: int) -> None:
+    """base.toml with its depth set to ``depth``, written to ``path``."""
+    from progen_tpu_torch import load_toml_config
+
+    d = {**load_toml_config(str(REPO / "configs" / "model" / "base.toml")),
+         "depth": depth}
+    path.write_text("".join(f"{k} = {json.dumps(v)}\n"
+                            for k, v in d.items()))
+
+
 def phase_cli(cfg, train: dict) -> dict:
-    """Phase 8: the port's CLIs in this process, at base.toml with
-    --mixed_precision, in a directory under build/ that is removed
-    afterwards: generate_data on a synthetic FASTA; train 4 steps
-    (batch 4 x 4, checkpoint and validate every 2, a sample at step 0);
-    train again, resuming, 2 steps; eval on the valid split; sample one
-    sequence. With the launch counts set to 0 just before and read just
-    after; every step must launch per_step(cfg)."""
+    """Phase 8: the port's CLIs in this process, at base.toml's widths
+    with its depth cut to CLI_DEPTH and --mixed_precision, in a directory
+    under build/ that is removed afterwards: generate_data on a synthetic
+    FASTA; train 4 steps (batch 4 x 4, checkpoint and validate every 2, a
+    sample at step 0); train again, resuming, 2 steps; eval on the valid
+    split; sample one sequence. With the launch counts set to 0 just
+    before and read just after; every step must launch per_step(cfg)."""
     import shutil
 
     from progen_tpu_torch import ProGen, ProGenConfig
@@ -1653,9 +1700,12 @@ def phase_cli(cfg, train: dict) -> dict:
     from progen_tpu_torch.sampling import sample_fast
 
     t_phase = time.perf_counter()
+    cfg = dataclasses.replace(cfg, depth=CLI_DEPTH)
     work = REPO / "build" / "chip_smoke_cli"
     shutil.rmtree(work, ignore_errors=True)
     (work / "data_cfg").mkdir(parents=True)
+    (work / "model_cfg").mkdir()
+    cut_model_toml(work / "model_cfg" / "base.toml", CLI_DEPTH)
     try:
         fasta, data, ck = work / "uniref50_synthetic.fasta", work / "data", \
             work / "ckpts"
@@ -1668,7 +1718,7 @@ def phase_cli(cfg, train: dict) -> dict:
                                     "--seed", str(CLI_SEED)])
         etl_s = time.perf_counter() - t
         args = ["--device", "cuda", "--wandb_off", "--mixed_precision",
-                "--config_path", str(REPO / "configs" / "model"),
+                "--config_path", str(work / "model_cfg"),
                 "--model_name", "base", "--data_path", str(data),
                 "--checkpoint_path", str(ck), "--batch_size",
                 str(TRAIN_MICRO), "--grad_accum_every", str(TRAIN_ACCUM),
@@ -1751,8 +1801,9 @@ def phase_cli(cfg, train: dict) -> dict:
             step_ms=float(np.mean([st["ms"] for st in steps[1:]])),
             tokens_per_s=float(np.mean([st["tokens_per_s"]
                                         for st in steps[1:]])),
-            train_phase_step_ms=train.get("step_ms"),
-            train_phase_tokens_per_s=train.get("tokens_per_s"),
+            depth=CLI_DEPTH,
+            train_phase_step_ms_at_depth_24=train.get("step_ms"),
+            train_phase_tokens_per_s_at_depth_24=train.get("tokens_per_s"),
             launches=counts, launches_per_step=per_step(cfg),
             evals=n_evals, **restore, save_s=saves,
             valid_losses=[v["loss"] for v in fresh["valid_losses"]
@@ -2799,6 +2850,763 @@ def phase_workloads(cfg, score: dict, card: str) -> dict:
     return out
 
 
+# phase 11: the grid: tensor parallelism at large.toml, the float32 form
+# of the rule at base widths, ZeRO-1, GPipe and 1F1B, and cli.train
+# --mesh_model 2, on GRID_RANKS ranks that share the card over gloo
+GRID_RANKS, GRID_TIMEOUT = 2, 900  # seconds: the collectives, the join
+TP_ACCUM, TP_MICRO = 2, 2  # large.toml's (2, 2, 1025) batch
+F32_DEPTH = 4  # the float32 rule's model: base widths, depth cut to 4
+ZERO1_ACCUM, ZERO1_MICRO = 2, 4
+PIPE_MICRO, PIPE_M = 8, 4  # (1, 8, 1025), 4 microbatches of 2 rows
+GRID_CLI_STEPS, GRID_CLI_BATCH = 3, 4  # batch 4 x 1, then 1 resumed step
+GRID_SAMPLE_TOKENS = 32  # the CLI's cadenced sample, cut from 1024
+# the gradient cosine of a grid against one process in bfloat16. The
+# pipelines compute every product whole, as one process does, and keep
+# SEQPAR_COS. Tensor parallelism sums each row-parallel product's
+# float32 halves and rounds once, which the H100's tensor cores round
+# otherwise than one process's whole product: tools/tp_rounding.py, one
+# process doing only that at large.toml, moves the gradients to a cosine
+# of 0.99905 from the plain run (float32 is at 0.99719 from it). So there
+# the cosine is held as the share rule holds the distances: 1 - cos no
+# more than SEQPAR_SHARE_BF16 x bfloat16's own 1 - cos from float32
+TP_COS_RULE = "share"
+
+
+def large_config():
+    from progen_tpu_torch import ProGenConfig, load_toml_config
+
+    return ProGenConfig.from_dict(load_toml_config(
+        str(REPO / "configs" / "model" / "large.toml")))
+
+
+def grid_batch(cfg, accum: int, micro: int, seed: int) -> torch.Tensor:
+    """(accum, micro, seq_len + 1) random tokens 1..255 from a numpy seed:
+    no pad, so every position counts in the loss."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(1, cfg.num_tokens,
+                                         (accum, micro, cfg.seq_len + 1)))
+
+
+def large_rows(cfg, card: str, tc: dict) -> list:
+    """A1, A2 and A3 at large.toml's shapes on a rank of the model axis,
+    (2, 7, 1024, 128) at window 512 in bfloat16, against their plain
+    versions at phase 2's tolerances, with times, the bound, SDPA's time
+    and ptxas's spill bytes at d = 128 (reported; the build fails spills
+    at d = 64 only); then L1 at (2, 1024, 1792) and L2 on whole rows at
+    (2, 1024, 3584), against their plain versions."""
+    import torch.nn.functional as F
+
+    from progen_tpu_torch.ops import cuda_attention, cuda_layers
+
+    dev, dt = torch.device("cuda"), cfg.compute_dtype
+    gen = torch.Generator(device=dev).manual_seed(11)
+    b, h, n, d, w = TP_MICRO, cfg.heads // GRID_RANKS, cfg.seq_len, \
+        cfg.dim_head, cfg.window_size
+    bh, esize = b * h, torch.finfo(dt).bits // 8
+
+    def randn(*shape, dtype=dt):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def spills(kernel):
+        return {k.split(": ")[0]: v["spill_bytes"] for k, v in tc.items()
+                if f"{kernel}_tc_kernel<bfloat16, {d}>" in k}
+
+    q, k, v, do = (randn(b, h, n, d) for _ in range(4))
+    zeros = torch.zeros(b, h, w, d, dtype=dt, device=dev)
+    i = torch.arange(n, device=dev)[:, None]
+    j = torch.arange(n + w, device=dev)[None, :] - w
+    mask = torch.where(j < 0, i < w,
+                       (j <= i) & (i // w - j.clamp_min(0) // w <= 1))
+    kp, vp = torch.cat([zeros, k], 2), torch.cat([zeros, v], 2)
+    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        q, kp, vp, attn_mask=mask), iters=5)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(
+        leaves[0], torch.cat([zeros, leaves[1]], 2),
+        torch.cat([zeros, leaves[2]], 2), attn_mask=mask)
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                                   retain_graph=True))
+    del out, leaves, kp, vp
+    pairs = visible_pairs(n, w) * bh
+    rows = []
+    got = cuda_attention.local_attention_fwd(q, k, v, w)
+    want = cuda_attention.local_attention_fwd_reference(q, k, v, w)
+    rows.append(dict(
+        id="A1", name="local_attention_fwd", shape=[b, h, n, d], window=w,
+        **check_close("A1 at large", got, want, 1e-2, 1e-2),
+        **kernel_times(lambda: cuda_attention.local_attention_fwd(q, k, v,
+                                                                  w)),
+        plain_ms=time_ms(lambda: cuda_attention.local_attention_fwd_reference(
+            q, k, v, w), iters=3),
+        library_ms=sdpa_fwd,
+        **bound_ms(4 * bh * n * d * esize, 2 * 2 * d * pairs, dt),
+        spill_bytes=spills("fwd")))
+    del got, want
+    bnd = bound_ms(7 * bh * n * d * esize, 5 * 2 * d * pairs, dt)
+    for rid, impl, kern in (("A2", "kv", ("rows", "kv")),
+                            ("A3", "halo", ("rows", "halo"))):
+        fn = getattr(cuda_attention, f"local_attention_bwd_{impl}")
+        ref = getattr(cuda_attention, f"local_attention_bwd_{impl}_reference")
+        errs = [check_close(f"{rid} {g} at large", a, c, 1e-2, 1e-2)
+                for g, a, c in zip(("dq", "dk", "dv"), fn(q, k, v, do, w),
+                                   ref(q, k, v, do, w))]
+        rows.append(dict(
+            id=rid, name=f"local_attention_bwd_{impl}", shape=[b, h, n, d],
+            window=w, **max(errs, key=lambda e: e["worst_over_tolerance"]),
+            **kernel_times(lambda: fn(q, k, v, do, w)),
+            plain_ms=time_ms(lambda: ref(q, k, v, do, w), iters=3),
+            library_ms=sdpa_bwd, **bnd,
+            spill_bytes={kk: spills(kk) for kk in kern}))
+    del q, k, v, do
+    for r in rows:
+        t = r["device_ms"] or r["ms"]
+        r["share_of_bound"] = r["bound_ms"] / t
+        line(f"kernel {r['id']} at large", **{k: r[k] for k in (
+            "name", "shape", "max_abs_err", "worst_over_tolerance", "ms",
+            "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "share_of_bound", "spill_bytes")}, card=card)
+    eps, half = cfg.layer_norm_epsilon, cfg.dim * cfg.ff_mult // 2
+    x = randn(b, n, cfg.dim) * 2 + 0.5
+    scale = torch.rand(cfg.dim, generator=gen, device=dev) + 0.5
+    checks = {"L1": check_close(
+        "L1 at large", cuda_layers.norm_shift(x, scale, eps, dt),
+        cuda_layers.norm_shift_reference(x, scale, eps, dt), 1e-2, 1e-2)}
+    x, gate = randn(b, n, half), randn(b, n, half)
+    wts = randn(n, n, dtype=torch.float32) / n ** 0.5
+    bias = randn(n, 1, dtype=torch.float32)
+    scale = torch.rand(half, generator=gen, device=dev) + 0.5
+    checks["L2"] = check_close(
+        "L2 at large",
+        cuda_layers.sgu_mix_gate(x, gate, wts, bias, scale, eps, dt),
+        cuda_layers.sgu_mix_gate_reference(x, gate, wts, bias, scale, eps,
+                                           dt), 2e-2, 2e-2)
+    del x, gate
+    line("large shapes", **{k: {m: v[m] for m in ("max_abs_err",
+                                                  "worst_over_tolerance")}
+                            for k, v in checks.items()},
+         L1_shape=[b, n, cfg.dim], L2_shape=[b, n, half])
+    return rows
+
+
+def local_tree(model) -> dict:
+    return {n: p.detach() for n, p in model.named_parameters()}
+
+
+def clone_tree(tree: dict) -> dict:
+    return {n: t.detach().clone() for n, t in tree.items()}
+
+
+def steps_loss_rel(a: list, b: list) -> float:
+    return max(abs(x["loss"] - y["loss"]) / abs(y["loss"])
+               for x, y in zip(a, b))
+
+
+@contextlib.contextmanager
+def timed_all_reduce(group, sink: list):
+    """Host time of every all_reduce over ``group`` (the card synchronised
+    before and after), appended to ``sink``."""
+    real = torch.distributed.all_reduce
+
+    def timed(t, *a, **kw):
+        if kw.get("group") is not group:
+            return real(t, *a, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(t, *a, **kw)
+        torch.cuda.synchronize()
+        sink.append(time.perf_counter() - t0)
+        return out
+
+    with mock.patch.object(torch.distributed, "all_reduce", timed):
+        yield
+
+
+def grid_run(state, step, batch, group=None) -> tuple:
+    """GRID_STEPS (= SEQPAR_STEPS) timed steps on a grid state, each
+    rank's launches counted per step; returns (record, the first step's
+    gradients and the parameters' change, this rank's parts, and the
+    initial parameters, this rank's part). With ``group``, the host time
+    of its all_reduces per step."""
+    p0 = clone_tree(local_tree(state.model))
+    sink = []
+    with (timed_all_reduce(group, sink) if group is not None
+          else contextlib.nullcontext()):
+        run = timed_steps(step, state, batch)
+    delta = {n: p.float() - p0[n].float()
+             for n, p in local_tree(state.model).items()}
+    grads = run.pop("grads")
+    if group is not None:
+        run["model_all_reduce_ms_per_step"] = sum(sink) * 1e3 / SEQPAR_STEPS
+        run["model_all_reduces_per_step"] = len(sink) / SEQPAR_STEPS
+    return run, grads, delta, p0
+
+
+def whole_on_rank0(model, tree: dict, rank: int):
+    """``tree`` gathered whole onto rank 0's card (every rank of the
+    model group calls this); None elsewhere."""
+    out = model.gather_tree(tree, keep=rank == 0)
+    return out if rank == 0 else None
+
+
+def single_run(cfg, sd0: dict, batch, rank: int) -> tuple:
+    """Rank 0 alone: one process (no grid) takes the same steps from the
+    whole initial parameters ``sd0``: (record, first step's gradients,
+    the parameters' change)."""
+    from progen_tpu_torch.training.step import (
+        init_train_state,
+        make_train_step,
+    )
+
+    assert rank == 0
+    state = init_train_state(cfg, device="cuda", seed=None)
+    state.model.load_state_dict(sd0)
+    run = timed_steps(make_train_step(), state, batch)
+    grads = run.pop("grads")
+    delta = {n: p.float() - sd0[n].float()
+             for n, p in local_tree(state.model).items()}
+    del state
+    torch.cuda.empty_cache()
+    return run, grads, delta
+
+
+def distances(got: tuple, want: tuple) -> dict:
+    """Phase 7's three quantities of one run (steps, first gradients,
+    change) against another: every step's loss, and the largest
+    per-tensor relative distance (with the smallest cosine) of the
+    gradients and of the change."""
+    g = max_rel(got[1], want[1])
+    u = max_rel(got[2], want[2])
+    cos = sorted((rel_cos(got[1][n], want[1][n])[1], n) for n in want[1])
+    return dict(loss=steps_loss_rel(got[0]["steps"], want[0]["steps"]),
+                grads=g[0], grads_tensor=g[1], grads_min_cos=g[2],
+                grads_min_cos_tensor=g[3], grads_lowest_cos=cos[:4],
+                update=u[0], update_tensor=u[1], update_min_cos=u[2])
+
+
+def judge(runs: dict, cfg, sd0, batch, rank: int, dtype: str,
+          cos_rule: str = "absolute") -> dict:
+    """Rank 0: each grid run of ``runs`` ({name: (record, whole first
+    gradients, whole change)}, in ``dtype``) against one process taking
+    the same steps in that dtype, by phase 7's rule: bfloat16 no further
+    than bfloat16 is from float32 (SEQPAR_SHARE_BF16, and a gradient
+    cosine of SEQPAR_COS, or with ``cos_rule`` "share" the floor that
+    TP_COS_RULE's comment gives), float32 within SEQPAR_SHARE_F32 of it.
+    Both single processes run here, one after the other, freed in
+    between."""
+    if rank != 0:
+        return {}
+    other = "f32" if dtype == "bf16" else "bf16"
+    dtypes = {"bf16": "bfloat16", "f32": "float32"}
+    single = single_run(dataclasses.replace(cfg, dtype=dtypes[dtype]), sd0,
+                        batch, rank)
+    out = {name: distances(r, single) for name, r in runs.items()}
+    runs.clear()
+    ref = single_run(dataclasses.replace(cfg, dtype=dtypes[other]), sd0,
+                     batch, rank)
+    own = distances(single, ref) if dtype == "bf16" else \
+        distances(ref, single)
+    share = SEQPAR_SHARE_BF16 if dtype == "bf16" else SEQPAR_SHARE_F32
+    bad = []
+    for name, d in out.items():
+        for key in ("loss", "grads", "update"):
+            if not d[key] <= share * own[key]:
+                bad.append(f"{name} {key}: {d[key]} from the single "
+                           f"process, over {share} x bfloat16's "
+                           f"{own[key]} from float32")
+        floor = SEQPAR_COS if cos_rule == "absolute" else \
+            1 - SEQPAR_SHARE_BF16 * (1 - own["grads_min_cos"])
+        if dtype == "bf16" and not d["grads_min_cos"] >= floor:
+            bad.append(f"{name} gradient cosine {d['grads_min_cos']} < "
+                       f"{floor}")
+    return dict(vs_single=out, bf16_vs_f32=own, share=share,
+                cos_rule=cos_rule,
+                single_step_ms=single[0]["step_ms"],
+                single_launches=single[0]["launches"],
+                single_losses=[s["loss"] for s in single[0]["steps"]],
+                bad=bad)
+
+
+def tp_part(rank, grid, cfg, dtype: str, accum: int, micro: int,
+            seed: int) -> dict:
+    """Tensor parallelism: init_train_state on the grid (each rank draws
+    the seeded model and keeps its shards), GRID_STEPS of
+    make_train_step(grid), the whole first gradients, change and initial
+    parameters gathered onto rank 0, which then holds them against one
+    process by ``judge``."""
+    from progen_tpu_torch.training.step import (
+        init_train_state,
+        make_train_step,
+    )
+
+    batch = grid_batch(cfg, accum, micro, seed).cuda()
+    state = init_train_state(cfg, device="cuda", seed=0, grid=grid)
+    run, grads, delta, p0 = grid_run(state, make_train_step(grid), batch,
+                                     grid.model_group)
+    model = state.model
+    grads, delta, sd0 = (whole_on_rank0(model, t, rank)
+                         for t in (grads, delta, p0))
+    del state, model, p0
+    torch.cuda.empty_cache()
+    record = dict(steps=run["steps"], step_ms=run["step_ms"],
+                  peak_memory_bytes=run["peak_memory_bytes"],
+                  model_all_reduce_ms_per_step=run[
+                      "model_all_reduce_ms_per_step"],
+                  model_all_reduces_per_step=run[
+                      "model_all_reduces_per_step"],
+                  tokens_per_step=accum * micro * cfg.seq_len)
+    record["judge"] = judge({"tp": (run, grads, delta)}, cfg, sd0, batch,
+                            rank, dtype, cos_rule=TP_COS_RULE)
+    del grads, delta, sd0
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    return record
+
+
+def zero1_part(rank, grid, cfg) -> dict:
+    """ZeRO-1 on data 2 x model 1: GRID_STEPS of make_train_step(grid)
+    without and then with the moments cut over the data group, from the
+    same parameters; the parameters must come out bit-equal."""
+    from progen_tpu_torch.training.step import (
+        init_train_state,
+        make_train_step,
+    )
+
+    batch = grid_batch(cfg, ZERO1_ACCUM, ZERO1_MICRO, 12).cuda()
+    runs, params = {}, {}
+    p0 = None
+    for cut in (False, True):
+        state = init_train_state(cfg, device="cuda",
+                                 seed=None if cut else 0, grid=grid,
+                                 zero1=cut)
+        if cut:
+            state.model.load_state_dict(p0)
+        else:
+            p0 = clone_tree(local_tree(state.model))
+        run = timed_steps(make_train_step(grid), state, batch)
+        run.pop("grads")
+        opt = state.optimizer
+        run["moment_bytes"] = sum(t.nbytes for t in list(opt.mu.values())
+                                  + list(opt.nu.values()))
+        run["moments_cut"] = sum(d is not None for d in opt.cut.values())
+        runs[cut] = run
+        params[cut] = clone_tree(local_tree(state.model))
+        del state, opt
+        torch.cuda.empty_cache()
+    differing = [n for n in params[False]
+                 if not torch.equal(params[False][n], params[True][n])]
+    del params, p0
+    torch.cuda.empty_cache()
+    return dict(steps=runs[True]["steps"], plain_steps=runs[False]["steps"],
+                step_ms=runs[True]["step_ms"],
+                plain_step_ms=runs[False]["step_ms"],
+                moment_bytes=runs[True]["moment_bytes"],
+                plain_moment_bytes=runs[False]["moment_bytes"],
+                moments_cut=runs[True]["moments_cut"],
+                peak_memory_bytes=runs[True]["peak_memory_bytes"],
+                tensors_differing=differing)
+
+
+def pipe_per_step(cfg, stage: int, stages: int, schedule: str,
+                  m: int = PIPE_M) -> dict:
+    """Launches of one pipeline step (one micro-step of m microbatches)
+    on ``stage``: its layers' forward kernels twice a microbatch with
+    remat (1F1B's non-last stages three times: the forward slot without
+    autograd, then the recompute with its remat), the kv backward once."""
+    per = (cfg.depth - cfg.global_mlp_depth) // stages
+    last = stage == stages - 1
+    layers = per + (cfg.global_mlp_depth if last else 0)
+    gmlp = cfg.global_mlp_depth if last else 0
+    remat = 2 if cfg.remat else 1
+    times = remat if (schedule == "gpipe" or last) else 1 + remat
+    out = {k: 0 for k in per_forward(cfg)}
+    out.update(A1=layers * m * times, A2=layers * m,
+               L1=2 * layers * m * times, L2=gmlp * m * times)
+    return out
+
+
+def pipe_part(rank, grid, cfg) -> dict:
+    """GPipe, then 1F1B, on 2 stages (11 uniform layers each) with M = 4
+    on (1, 8, 1025), from the same initial parameters, each held against
+    one process by phase 7's rule, and 1F1B's first gradients against
+    GPipe's."""
+    from progen_tpu_torch.parallel.pipeline import (
+        init_pipeline_state,
+        make_pipeline_train_step,
+    )
+    from progen_tpu_torch.parallel.pipeline_1f1b import make_1f1b_train_step
+
+    batch = grid_batch(cfg, 1, PIPE_MICRO, 13).cuda()
+    runs, p0, sd0, record = {}, None, None, {}
+    for name, make in (("gpipe", make_pipeline_train_step),
+                       ("1f1b", make_1f1b_train_step)):
+        state = init_pipeline_state(cfg, device="cuda",
+                                    seed=0 if p0 is None else None,
+                                    grid=grid)
+        if p0 is not None:
+            state.model.load_state_dict(p0)
+        run, grads, delta, p_init = grid_run(state, make(grid, PIPE_M),
+                                             batch)
+        model = state.model
+        if p0 is None:
+            p0 = p_init
+            sd0 = whole_on_rank0(model, p0, rank)
+        runs[name] = (run, whole_on_rank0(model, grads, rank),
+                      whole_on_rank0(model, delta, rank))
+        record[name] = dict(steps=run["steps"], step_ms=run["step_ms"],
+                            peak_memory_bytes=run["peak_memory_bytes"],
+                            launches_per_step=pipe_per_step(
+                                cfg, grid.model_index, grid.model, name))
+        del state, model, grads, delta
+        torch.cuda.empty_cache()
+    del p0
+    if rank == 0:
+        g = max_rel(runs["1f1b"][1], runs["gpipe"][1])
+        record["1f1b_vs_gpipe_grads"] = dict(
+            max_rel=g[0], max_rel_tensor=g[1], min_cos=g[2],
+            bit_equal=sum(torch.equal(runs["1f1b"][1][n],
+                                      runs["gpipe"][1][n])
+                          for n in runs["gpipe"][1]),
+            tensors=len(runs["gpipe"][1]))
+    record["judge"] = judge(runs, cfg, sd0, batch, rank, "bf16")
+    if rank == 0:
+        own, g = record["judge"]["bf16_vs_f32"], \
+            record["1f1b_vs_gpipe_grads"]
+        if not (g["max_rel"] <= own["grads"] and g["min_cos"] >= SEQPAR_COS):
+            record["judge"]["bad"].append(
+                f"1F1B's first gradients off GPipe's: {g}")
+    del sd0
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    return record
+
+
+def grid_cli_args(work: Path, steps: int, batch: int) -> list:
+    return ["--device", "cuda", "--wandb_off", "--mixed_precision",
+            "--config_path", str(REPO / "configs" / "model"),
+            "--model_name", "base", "--data_path", str(work / "data"),
+            "--checkpoint_path", str(work / "ckpts"), "--batch_size",
+            str(batch), "--grad_accum_every", "1", "--checkpoint_every",
+            "1000", "--validate_every", "1000", "--sample_every", "1000",
+            "--seed", str(CLI_SEED), "--num_steps", str(steps)]
+
+
+@contextlib.contextmanager
+def short_samples(cli_train):
+    """The CLI's cadenced sample cut to GRID_SAMPLE_TOKENS new tokens (the
+    whole model gathered and decoding as ever; only the length cut, to
+    save the phase ~40 s of a 1024-token decode)."""
+    real = cli_train.sample_fast
+
+    def short(seed, model, prime, length, **kw):
+        return real(seed, model, prime, len(prime) + 1 + GRID_SAMPLE_TOKENS,
+                    **kw)
+
+    with mock.patch.object(cli_train, "sample_fast", short):
+        yield
+
+
+def cli_part(rank, work: Path) -> dict:
+    """cli.train --mesh_model 2 --dist_backend gloo --mixed_precision on
+    this rank, in this process (the rank has joined the group, as under
+    torchrun): GRID_CLI_STEPS steps and the final checkpoint; returns the
+    steps, the launches of each and the sha256 of each of this rank's
+    parameter shards."""
+    import hashlib
+
+    from progen_tpu_torch.cli import train as cli_train
+
+    counts = []
+    with mock.patch.object(cli_train, "make_train_step", counted_steps(
+            cli_train.make_train_step, counts)), short_samples(cli_train):
+        res = cli_train.run(grid_cli_args(work, GRID_CLI_STEPS,
+                                          GRID_CLI_BATCH)
+                            + ["--mesh_model", "2", "--dist_backend",
+                               "gloo"])
+    digests = {n: hashlib.sha256(t.detach().cpu().contiguous().view(
+        torch.uint8).numpy().tobytes()).hexdigest()
+        for n, t in res["state"].model.state_dict().items()}
+    out = dict(steps=res["steps"], step_launches=counts,
+               valid_losses=res["valid_losses"], samples=res["samples"],
+               saves=res["saves"], next_seq_index=res["next_seq_index"],
+               shard_sha256=digests)
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def grid_rank(rank: int, port: int, work: str) -> None:
+    """One of the GRID_RANKS ranks of phase 11, spawned: joins the gloo
+    group and runs every part in turn, writing its records."""
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(GRID_RANKS),
+                      GLOO_SOCKET_IFNAME="lo")
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from progen_tpu_torch import ProGenConfig, load_toml_config
+    from progen_tpu_torch.parallel import (
+        init_grid,
+        initialize_distributed,
+        tensor,
+    )
+
+    work = Path(work)
+    initialize_distributed("gloo", timeout=GRID_TIMEOUT)
+    base = ProGenConfig.from_dict(load_toml_config(
+        str(REPO / "configs" / "model" / "base.toml")))
+    tp = init_grid(1, 1, model=2)
+    parts, rec = {}, {"rank": rank}
+
+    def part(name, fn, *a):
+        t = time.perf_counter()
+        rec[name] = fn(*a)
+        parts[name] = time.perf_counter() - t
+
+    part("tp_large", tp_part, rank, tp, large_config(), "bf16", TP_ACCUM,
+         TP_MICRO, 14)
+    rec["matmul_f32_route"] = {f"{d} {t}": r for (d, t), r in
+                               tensor.MATMUL_F32_ROUTE.items()}
+    part("tp_f32", tp_part, rank, tp,
+         dataclasses.replace(base, depth=F32_DEPTH, dtype="float32"),
+         "f32", TP_ACCUM, TP_MICRO, 15)
+    part("zero1", zero1_part, rank, init_grid(2, 1, model=1), base)
+    part("pipe", pipe_part, rank, init_grid(1, 1, model=2), base)
+    part("cli", cli_part, rank, work)
+    rec["parts_s"] = parts
+    (work / f"rank{rank}.json").write_text(json.dumps(rec, default=float))
+    torch.distributed.destroy_process_group()
+
+
+def spawn_grid(work: Path) -> list:
+    """Start the ranks, wait for them within GRID_TIMEOUT, kill any left;
+    fail unless every rank exited 0. Their records, in rank order."""
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=grid_rank, args=(r, port, str(work)))
+             for r in range(GRID_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + GRID_TIMEOUT
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise AssertionError(f"grid ranks exited {codes}")
+    return [json.loads((work / f"rank{r}.json").read_text())
+            for r in range(GRID_RANKS)]
+
+
+def check_grid_checkpoint(cfg, work: Path, ranks: list) -> dict:
+    """The coordinator's checkpoint holds the ranks' gathered parameters
+    bit for bit: each rank's shards of it (convert.shard_state_dict) hash
+    as the rank's own parameters did."""
+    import hashlib
+
+    from progen_tpu_torch.checkpoint import get_checkpoint_fns
+    from progen_tpu_torch.convert import shard_state_dict
+
+    pkg = get_checkpoint_fns(str(work / "ckpts"))[1].restore_params()
+    differing = []
+    for r in ranks:
+        where = type("G", (), {"model": GRID_RANKS,
+                               "model_index": r["rank"]})
+        mine = shard_state_dict(pkg.state, cfg, where)
+        for n, t in mine.items():
+            digest = hashlib.sha256(t.contiguous().view(torch.uint8)
+                                    .numpy().tobytes()).hexdigest()
+            if digest != r["cli"]["shard_sha256"][n]:
+                differing.append((r["rank"], n))
+    return dict(path=pkg.path, tensors=len(pkg.state),
+                differing=differing)
+
+
+def resume_grid_cli(cfg, work: Path) -> dict:
+    """The single-process cli.train resumes the grid's checkpoint for one
+    step, its launches counted."""
+    from progen_tpu_torch.cli import train as cli_train
+
+    counts = []
+    reset_counts()
+    with mock.patch.object(cli_train, "make_train_step", counted_steps(
+            cli_train.make_train_step, counts)), short_samples(cli_train):
+        res = cli_train.run(grid_cli_args(work, 1, GRID_CLI_BATCH))
+    out = dict(start_seq_index=res["start_seq_index"],
+               step=res["state"].step, steps=res["steps"],
+               step_launches=counts, launches=launch_counts())
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_grid(base, card: str, tc: dict) -> dict:
+    """Phase 11 (see the module docstring)."""
+    import shutil
+
+    from progen_tpu_torch.cli import generate_data
+
+    t_phase = time.perf_counter()
+    large = large_config()
+    parts = {}
+    t = time.perf_counter()
+    rows = large_rows(large, card, tc)
+    parts["large_kernels"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    work = REPO / "build" / "chip_smoke_grid"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "data_cfg").mkdir(parents=True)
+    try:
+        t = time.perf_counter()
+        fasta = work / "uniref50_synthetic.fasta"
+        write_fasta(fasta, CLI_SEED)
+        (work / "data_cfg" / "synthetic.toml").write_text(DATA_TOML.format(
+            fasta=fasta, out=work / "data", n=CLI_SEQS))
+        generate_data.run(["--data_dir", str(work / "data_cfg"), "--name",
+                           "synthetic", "--seed", str(CLI_SEED)])
+        parts["etl"] = time.perf_counter() - t
+        t = time.perf_counter()
+        ranks = spawn_grid(work)
+        parts["ranks"] = time.perf_counter() - t
+        t = time.perf_counter()
+        ckpt = check_grid_checkpoint(base, work, ranks)
+        resumed = resume_grid_cli(base, work)
+        parts["resume"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    bad = []
+    want_tp = per_step(large, accum=TP_ACCUM)
+    f32cfg = dataclasses.replace(base, depth=F32_DEPTH)
+    want = {"tp_large": want_tp,
+            "tp_f32": per_step(f32cfg, accum=TP_ACCUM),
+            "zero1": per_step(base, accum=ZERO1_ACCUM)}
+    for r in ranks:
+        for key, w in want.items():
+            for i, st in enumerate(r[key]["steps"]):
+                if st["launches"] != w:
+                    bad.append(f"rank {r['rank']} {key} step {i + 1} "
+                               f"launched {st['launches']}, not {w}")
+                if not np.isfinite(st["loss"]) or st["skipped"]:
+                    bad.append(f"rank {r['rank']} {key} step {i + 1}: {st}")
+        for name in ("gpipe", "1f1b"):
+            w = r["pipe"][name]["launches_per_step"]
+            for i, st in enumerate(r["pipe"][name]["steps"]):
+                if st["launches"] != w:
+                    bad.append(f"rank {r['rank']} {name} step {i + 1} "
+                               f"launched {st['launches']}, not {w}")
+                if not np.isfinite(st["loss"]):
+                    bad.append(f"rank {r['rank']} {name} step {i + 1}: {st}")
+        z = r["zero1"]
+        if z["tensors_differing"]:
+            bad.append(f"rank {r['rank']} ZeRO-1 parameters differ: "
+                       f"{z['tensors_differing'][:5]}")
+        if not z["moment_bytes"] < 0.55 * z["plain_moment_bytes"]:
+            bad.append(f"rank {r['rank']} ZeRO-1 moments {z['moment_bytes']}"
+                       f" of {z['plain_moment_bytes']} bytes")
+        cli = r["cli"]
+        if [c for c in cli["step_launches"]
+                if c != per_step(base, accum=1)]:
+            bad.append(f"rank {r['rank']} cli launches "
+                       f"{cli['step_launches']}")
+        if len(cli["steps"]) != GRID_CLI_STEPS or not all(
+                np.isfinite(s["loss"]) and s["skipped"] == 0
+                for s in cli["steps"]):
+            bad.append(f"rank {r['rank']} cli steps {cli['steps']}")
+    for key in ("tp_large", "tp_f32"):
+        bad += ranks[0][key]["judge"]["bad"]
+    bad += ranks[0]["pipe"]["judge"]["bad"]
+    if len(ranks[0]["cli"]["samples"]) != 1 or ranks[1]["cli"]["samples"]:
+        bad.append("only the coordinator samples, once")
+    if ckpt["differing"]:
+        bad.append(f"the checkpoint's shards differ from the ranks' "
+                   f"parameters: {ckpt['differing'][:5]}")
+    cursor = GRID_CLI_STEPS * GRID_CLI_BATCH
+    if (resumed["start_seq_index"], resumed["step"]) != \
+            (cursor, GRID_CLI_STEPS + 1) or resumed["step_launches"] != \
+            [per_step(base, accum=1)] or not all(
+            np.isfinite(s["loss"]) for s in resumed["steps"]):
+        bad.append(f"the single-process resume: {resumed}")
+
+    tp = [r["tp_large"] for r in ranks]
+    tokens = tp[0]["tokens_per_step"]
+    out = dict(
+        card=card, large_rows=rows, ranks=GRID_RANKS, backend="gloo",
+        matmul_f32_route=ranks[0]["matmul_f32_route"],
+        tp_large=dict(
+            config="configs/model/large.toml", grid=[1, 1, 2],
+            batch=[TP_ACCUM, TP_MICRO, large.seq_len + 1],
+            num_params=large.num_params(),
+            launches_per_step_and_rank=want_tp,
+            step_ms_per_rank=[r["step_ms"] for r in tp],
+            tokens_per_s=tokens / (max(r["step_ms"] for r in tp) / 1e3),
+            model_all_reduce_ms_per_step=[
+                r["model_all_reduce_ms_per_step"] for r in tp],
+            model_all_reduces_per_step=tp[0]["model_all_reduces_per_step"],
+            peak_memory_bytes_per_rank=[r["peak_memory_bytes"] for r in tp],
+            losses=[s["loss"] for s in tp[0]["steps"]],
+            **{k: v for k, v in ranks[0]["tp_large"]["judge"].items()
+               if k != "bad"}),
+        tp_f32=dict(config=f"base.toml widths, depth {F32_DEPTH}, float32",
+                    step_ms_per_rank=[r["tp_f32"]["step_ms"] for r in ranks],
+                    **{k: v for k, v in ranks[0]["tp_f32"]["judge"].items()
+                       if k != "bad"}),
+        zero1=dict(grid=[2, 1, 1], batch=[ZERO1_ACCUM, ZERO1_MICRO,
+                                          base.seq_len + 1],
+                   **{k: [r["zero1"][k] for r in ranks] for k in (
+                       "step_ms", "plain_step_ms", "moment_bytes",
+                       "plain_moment_bytes", "moments_cut",
+                       "peak_memory_bytes")},
+                   losses=[s["loss"] for s in ranks[0]["zero1"]["steps"]],
+                   parameters_bit_equal=not any(
+                       r["zero1"]["tensors_differing"] for r in ranks)),
+        pipe=dict(stages=2, microbatches=PIPE_M,
+                  batch=[1, PIPE_MICRO, base.seq_len + 1],
+                  **{name: dict(
+                      step_ms_per_stage=[r["pipe"][name]["step_ms"]
+                                         for r in ranks],
+                      launches_per_step_and_stage=[
+                          r["pipe"][name]["launches_per_step"]
+                          for r in ranks],
+                      peak_memory_bytes_per_stage=[
+                          r["pipe"][name]["peak_memory_bytes"]
+                          for r in ranks],
+                      losses=[s["loss"] for s in
+                              ranks[0]["pipe"][name]["steps"]])
+                     for name in ("gpipe", "1f1b")},
+                  f1b_vs_gpipe_grads=ranks[0]["pipe"]["1f1b_vs_gpipe_grads"],
+                  **{k: v for k, v in ranks[0]["pipe"]["judge"].items()
+                     if k != "bad"}),
+        cli=dict(steps=[{k: s[k] for k in ("step", "loss", "ms",
+                                           "tokens_per_s")}
+                        for s in ranks[0]["cli"]["steps"]],
+                 checkpoint=ckpt, resumed=resumed,
+                 save_s=[s["seconds"] for s in ranks[0]["cli"]["saves"]]),
+        parts_s=parts, rank_parts_s=[r["parts_s"] for r in ranks],
+        seconds=time.perf_counter() - t_phase, budget_s=300)
+    line("grid", **{k: v for k, v in out.items() if k != "large_rows"})
+    if bad:
+        raise AssertionError("grid: " + "; ".join(bad))
+    launches = {k: sum(st["launches"][k] for r in ranks
+                       for key in ("tp_large", "tp_f32", "zero1")
+                       for st in r[key]["steps"])
+                + sum(st["launches"][k] for r in ranks
+                      for name in ("gpipe", "1f1b")
+                      for st in r["pipe"][name]["steps"])
+                + sum(c[k] for r in ranks for c in r["cli"]["step_launches"])
+                + resumed["launches"][k]
+                for k in per_forward(base)}
+    return dict(out, launches=launches)
+
+
 def check_training(run: dict) -> None:
     """Phase 6c: every loss and grad norm finite, no step refused, and a
     lower loss on the repeated batch after the steps than before."""
@@ -2873,19 +3681,23 @@ def main() -> int:
     result["serve"] = phase_serve(
         cfg, 2 * result["generate"]["plain_vs_f32"] + 1e-3, card)
     result["workloads"] = phase_workloads(cfg, result["score"], card)
+    result["grid"] = phase_grid(cfg, card, build["tensor_core_kernels"])
 
     # each kernel's launches, summed over the paths driven with counts:
     # scoring + generation, the 3 train steps, the A3 step, the seqpar
     # ranks' 3 steps and A4 halo-backward step (the single-process
     # comparison there is left out), the CLIs' steps and evals, the
-    # serving engine's run, and the workloads' scorer, scans and n = w
-    # scorer (their child processes count apart and are left out)
+    # serving engine's run, the workloads' scorer, scans and n = w
+    # scorer (their child processes count apart and are left out), and
+    # the grid ranks' steps (single-process comparisons left out) and the
+    # resumed cli.train
     paths = dict(inference=run["launches"], train=train["launches"],
                  halo_step=result["halo_step"]["launches"],
                  seqpar=result["seqpar"]["launches"],
                  cli=result["cli"]["launches"],
                  serve=result["serve"]["launches"],
-                 workloads=result["workloads"]["launches"])
+                 workloads=result["workloads"]["launches"],
+                 grid=result["grid"]["launches"])
     counts = {k: sum(c[k] for c in paths.values()) for k in run["launches"]}
     line("launches", **paths, total=counts)
     if not all(counts.values()):

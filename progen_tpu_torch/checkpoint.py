@@ -25,6 +25,16 @@ weights_only=True, map_location=device)``, and every tensor keeps its
 dtype. A ``progen_tpu`` (orbax) checkpoint is refused: the test-side
 importer ``tests/torch_jax_ckpt.py`` converts one.
 
+On a grid (``get_checkpoint_fns(..., grid=grid)``), every rank calls
+``save``: the state is gathered (the ZeRO-1 moment slices over the data
+group, the tensor-parallel shards or pipeline stages over the model
+group, tensor by tensor into the coordinator's host memory), and the
+coordinator alone writes today's unsharded format, so a checkpoint from
+any grid resumes in any grid or in one process. The coordinator alone
+walks, verifies and quarantines, and tells the other ranks its choice;
+every rank then reads the whole checkpoint into host memory and keeps
+its part. The ranks share the checkpoint's file system.
+
 Not ported: asynchronous saves, ``gs://`` paths, and the telemetry, retry
 and fault-injection seams of the JAX module. One process writes.
 """
@@ -41,8 +51,10 @@ from pathlib import Path
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from progen_tpu_torch.data.dataset import reject_gcs
+from progen_tpu_torch.parallel.groups import is_coordinator
 
 CKPT_PREFIX = "ckpt_"
 CORRUPT_SUFFIX = ".corrupt"
@@ -107,15 +119,36 @@ def train_state_payload(state) -> Tuple[dict, dict]:
 
 
 def load_train_state(state, payload: dict) -> None:
-    """Copy a restored payload into ``state`` (parameters, moments, count,
-    step), in place."""
-    state.model.load_state_dict(payload["params"])
-    state.optimizer.load_state_dict(payload["optimizer"])
+    """Copy a restored (whole) payload into ``state`` (parameters,
+    moments, count, step), in place; a model on a grid keeps its part
+    (``shard_tree``) and a ZeRO-1 optimizer its slices."""
+    model, opt = state.model, payload["optimizer"]
+    model.load_state_dict(model.shard_tree(payload["params"]))
+    state.optimizer.load_state_dict({
+        "count": opt["count"], "mu": model.shard_tree(opt["mu"]),
+        "nu": model.shard_tree(opt["nu"])})
     state.step = int(payload["step"])
 
 
+def gather_train_state(state) -> Optional[Tuple[dict, dict]]:
+    """(params, opt) of a state on a grid, whole, in the coordinator's
+    host memory; None on the other ranks. Every rank calls it together:
+    the ZeRO-1 moments are gathered over the data group, then each tree
+    over the model group, one tensor at a time."""
+    keep = is_coordinator()
+    params, opt = train_state_payload(state)
+    model = state.model
+
+    def whole(tree):
+        return model.gather_tree(tree, device="cpu", keep=keep)
+
+    params = whole(params)
+    opt = {**opt, "mu": whole(opt["mu"]), "nu": whole(opt["nu"])}
+    return (params, opt) if keep else None
+
+
 def get_checkpoint_fns(
-    path: str, keep_last_n: int = DEFAULT_KEEP_LAST_N
+    path: str, keep_last_n: int = DEFAULT_KEEP_LAST_N, grid=None
 ) -> Tuple[Callable, Callable, Callable]:
     """(reset, get_last, save) over the local directory ``path``.
 
@@ -128,9 +161,28 @@ def get_checkpoint_fns(
         alone. ``at`` names one checkpoint (a ``ckpt_N`` or a path ending
         in one); it never falls back to another.
     reset(): delete the directory.
+    With a ``grid`` (``parallel.Grid``), every rank calls each of them
+    together (see the module docstring).
     """
     reject_gcs(path)
     root = Path(path).resolve()
+    ranks = grid is not None and dist.is_initialized()
+
+    def _shared(fn):
+        """``fn()`` on the coordinator, its result on every rank."""
+        if not ranks:
+            return fn()
+        box = [None]
+        if is_coordinator():
+            try:
+                box = [(True, fn())]
+            except Exception as e:  # every rank raises it, not one alone
+                box = [(False, e)]
+        dist.broadcast_object_list(box, src=0)
+        ok, value = box[0]
+        if not ok:
+            raise value
+        return value
 
     def _list() -> list:
         # fullmatch leaves out quarantined ckpt_N.corrupt and unfinished
@@ -145,10 +197,18 @@ def get_checkpoint_fns(
         return [p for p in candidates if (p / META_FILE).exists()]
 
     def reset() -> None:
-        if root.exists():
-            shutil.rmtree(root)
+        def rm():
+            if root.exists():
+                shutil.rmtree(root)
+        _shared(rm)
 
     def save(package: Package) -> str:
+        if ranks:
+            payload = gather_train_state(package.state)
+            return _shared(lambda: _write(package, payload))
+        return _write(package, train_state_payload(package.state))
+
+    def _write(package: Package, payload: Tuple[dict, dict]) -> str:
         # unix-time names made collision-proof: two saves in one second
         # get increasing names, so lexicographic order is save order
         stamp = int(time.time())
@@ -161,7 +221,7 @@ def get_checkpoint_fns(
             shutil.rmtree(stale)  # a save that died before its rename
         tmp = target.with_name(target.name + TMP_SUFFIX)
         tmp.mkdir()
-        params, opt = train_state_payload(package.state)
+        params, opt = payload
         torch.save(params, tmp / PARAMS_FILE)
         torch.save(opt, tmp / OPT_FILE)
         meta = {
@@ -214,6 +274,9 @@ def get_checkpoint_fns(
         return cand, meta
 
     def _select(at=None) -> Optional[tuple]:
+        return _shared(lambda: _select_here(at))
+
+    def _select_here(at=None) -> Optional[tuple]:
         if at is None:  # the newest that verifies, walking back
             for cand in reversed(_complete(_list())):
                 sel = _verify_candidate(cand)
@@ -241,7 +304,7 @@ def get_checkpoint_fns(
         if sel is None:
             return None
         ckpt = sel[0]
-        if state is not None:
+        if state is not None and not ranks:
             device = state.model.device
         opt = _load(ckpt / OPT_FILE, device)
         payload = {"params": _load(ckpt / PARAMS_FILE, device),

@@ -20,6 +20,13 @@ go through the params' leaf map and transposes into the port's
 ``MaskedAdamW.state_dict()`` form, and back as a plain
 ``{"count", "mu", "nu"}`` tree of numpy arrays.
 
+Tensor-parallel shards: ``shard_state_dict`` cuts the port's whole
+state_dict (or moments keyed like it, or a whole train payload) into a
+rank's shards by the rule table of ``parallel/tensor.py``, and
+``gather_state_dict`` puts every rank's shards back together, bit for
+bit: the rank's q | k | v heads and its columns of both GLU halves are
+selected there and nowhere else.
+
 Reference checkpoints (lucidrains/progen, the JAX package's
 ``convert.py``): one pickled dict ``{next_seq_index, params,
 optim_state, model_config, run_id}`` whose ``params`` is a Haiku tree
@@ -41,6 +48,7 @@ import numpy as np
 import torch
 
 from progen_tpu_torch.config import ProGenConfig
+from progen_tpu_torch.parallel.tensor import layout, shard, unshard
 
 _NORM = ("ScaleNorm_0", "norm", "scale")
 
@@ -189,6 +197,39 @@ def state_dict_to_flax_params(sd: dict, config: ProGenConfig,
     if config.scan_layers if scan_layers is None else scan_layers:
         tree = _stack(tree, config)
     return tree
+
+
+def shard_state_dict(sd: dict, config: ProGenConfig, grid) -> dict:
+    """Rank ``grid.model_index``'s tensor-parallel shards of a whole
+    state_dict (``grid``: anything with ``model`` and ``model_index``).
+    A train payload (``{"params", "optimizer": {"count", "mu", "nu"},
+    "step"}``) is cut in its params and moments alike. The shards are
+    copies that share no storage with ``sd``."""
+    if "params" in sd:
+        opt = sd["optimizer"]
+        return {**sd, "params": shard_state_dict(sd["params"], config, grid),
+                "optimizer": {**opt, **{k: shard_state_dict(opt[k], config,
+                                                            grid)
+                                        for k in ("mu", "nu")}}}
+    return {n: shard(t, layout(n, config), grid.model,
+                     grid.model_index).clone()
+            for n, t in sd.items()}
+
+
+def gather_state_dict(shards: list, config: ProGenConfig) -> dict:
+    """The whole state_dict (or train payload) from every model rank's
+    shards, in rank order: the inverse of ``shard_state_dict``."""
+    first = shards[0]
+    if "params" in first:
+        opt = first["optimizer"]
+        return {**first,
+                "params": gather_state_dict([s["params"] for s in shards],
+                                            config),
+                "optimizer": {**opt, **{k: gather_state_dict(
+                    [s["optimizer"][k] for s in shards], config)
+                    for k in ("mu", "nu")}}}
+    return {n: unshard([s[n] for s in shards], layout(n, config))
+            for n in first}
 
 
 _ADAM = {"count", "mu", "nu"}

@@ -24,6 +24,12 @@ sequence. The token shift takes the left neighbour's last row, the
 attention its last window (``parallel/ring_attention.py``, kernel A4),
 and the SGU gathers the gate over the whole sequence and computes the
 shard's rows of the mix (the reference's ``sgu_seq_out`` rule).
+
+Tensor shards: a block built with a ``parallel.tensor.TP`` holds its
+rank's columns or rows of each projection (``parallel/tensor.py`` has
+the rule table): the attention its heads, the feed-forward its share of
+the hidden features, and each block ends in one all-reduce over the
+model group. The one-token decode path is not tensor-parallel.
 """
 
 from __future__ import annotations
@@ -48,6 +54,12 @@ from progen_tpu_torch.ops.rotary import apply_rotary_pos_emb
 from progen_tpu_torch.ops.shift import shift_tokens
 from progen_tpu_torch.parallel.collectives import gather_seq, halo_from_left
 from progen_tpu_torch.parallel.ring_attention import ring_local_attention
+from progen_tpu_torch.parallel.tensor import (
+    TP,
+    column_parallel_linear,
+    gather_from_model,
+    row_parallel_linear,
+)
 
 # The attention backward: A2 ("kv"), the JAX package's default and its
 # policy's choice at window 512 (pallas_attention.py:355-360), or A3
@@ -57,11 +69,24 @@ ATTN_BWD_IMPL = "kv"
 
 class Dense(nn.Module):
     """``y = x W^T + b`` computed in ``dtype``: flax ``Dense(dtype=...)``
-    with the weight stored as (out, in) in ``param_dtype``."""
+    with the weight stored as (out, in) in ``param_dtype``.
+
+    With a ``tp``, ``parallel`` names the Megatron form: "column" holds
+    this rank's out/model outputs (and their bias) of a replicated input,
+    whose gradient is summed over the model group; "row" holds its
+    in/model inputs and sums the partial products over the model group
+    before the (replicated) bias is added (``parallel/tensor.py``)."""
 
     def __init__(self, in_features: int, out_features: int,
-                 bias: bool = True, param_dtype=torch.float32):
+                 bias: bool = True, param_dtype=torch.float32, *,
+                 tp: TP | None = None, parallel: str | None = None):
         super().__init__()
+        self.tp = tp if parallel is not None else None
+        self.parallel = parallel if self.tp is not None else None
+        if self.parallel == "column":
+            out_features //= tp.size
+        elif self.parallel == "row":
+            in_features //= tp.size
         self.weight = nn.Parameter(torch.empty(out_features, in_features,
                                                dtype=param_dtype))
         self.bias = (nn.Parameter(torch.zeros(out_features,
@@ -69,7 +94,13 @@ class Dense(nn.Module):
                      if bias else None)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        y = F.linear(x.to(dtype), self.weight.to(dtype))
+        x, w = x.to(dtype), self.weight.to(dtype)
+        if self.parallel == "column":
+            y = column_parallel_linear(x, w, self.tp.group)
+        elif self.parallel == "row":
+            y = row_parallel_linear(x, w, self.tp.group)
+        else:
+            y = F.linear(x, w)
         if self.bias is not None:
             y = y + self.bias.to(dtype)
         return y
@@ -159,14 +190,17 @@ def _cached_head(norm: ScaleNorm, c: ProGenConfig, x: torch.Tensor,
 
 
 class LocalAttentionBlock(nn.Module):
-    def __init__(self, c: ProGenConfig):
+    def __init__(self, c: ProGenConfig, tp: TP | None = None):
         super().__init__()
         self.config = c
+        self.heads = c.heads // (tp.size if tp else 1)  # this rank's
         pd = c.params_dtype
         self.norm = ScaleNorm(c.dim, c.layer_norm_epsilon, pd)
+        # a shard holds q, k and v of its own heads (parallel/tensor.py)
         self.to_qkv = Dense(c.dim, 3 * c.inner_dim, bias=False,
-                            param_dtype=pd)
-        self.to_out = Dense(c.inner_dim, c.dim, param_dtype=pd)
+                            param_dtype=pd, tp=tp, parallel="column")
+        self.to_out = Dense(c.inner_dim, c.dim, param_dtype=pd, tp=tp,
+                            parallel="row")
 
     def _qkv(self, x, sin, cos):
         c = self.config
@@ -174,7 +208,7 @@ class LocalAttentionBlock(nn.Module):
         qkv = self.to_qkv(x, c.compute_dtype)
 
         def split_heads(t):  # (b, n, h*dh) -> (b, h, n, dh)
-            return t.reshape(b, n, c.heads, c.dim_head).transpose(1, 2)
+            return t.reshape(b, n, self.heads, c.dim_head).transpose(1, 2)
 
         q, k, v = map(split_heads, qkv.chunk(3, dim=-1))
         q = apply_rotary_pos_emb(q, sin, cos)
@@ -185,7 +219,7 @@ class LocalAttentionBlock(nn.Module):
 
     def _out(self, out):
         b, _, n, _ = out.shape
-        out = out.transpose(1, 2).reshape(b, n, self.config.inner_dim)
+        out = out.transpose(1, 2).reshape(b, n, -1)
         return self.to_out(out, self.config.compute_dtype)
 
     def forward(self, x, sin, cos, group=None):
@@ -251,16 +285,19 @@ class LocalAttentionBlock(nn.Module):
 
 
 class SpatialGatingUnit(nn.Module):
-    def __init__(self, c: ProGenConfig, dim_in: int, dim_out: int):
+    def __init__(self, c: ProGenConfig, dim_in: int, dim_out: int,
+                 tp: TP | None = None):
         super().__init__()
         self.config = c
         half = dim_in // 2
         n, pd = c.seq_len, c.params_dtype
+        # replicated over the model group: the mix runs on whole rows
         self.norm = ScaleNorm(half, c.layer_norm_epsilon, pd)
         # read as float32 by the mix, as the TPU kernel reads them
         self.spatial_weights = nn.Parameter(torch.empty(n, n, dtype=pd))
         self.spatial_biases = nn.Parameter(torch.ones(n, 1, dtype=pd))
-        self.proj_out = Dense(half, dim_out, param_dtype=pd)
+        self.proj_out = Dense(half, dim_out, param_dtype=pd, tp=tp,
+                              parallel="column")
 
     def forward(self, h, group=None):
         c = self.config
@@ -307,20 +344,24 @@ class SpatialGatingUnit(nn.Module):
 
 class FeedForwardBlock(nn.Module):
     def __init__(self, c: ProGenConfig, glu: bool = False,
-                 spatial_gate: bool = False):
+                 spatial_gate: bool = False, tp: TP | None = None):
         super().__init__()
         if glu and spatial_gate:
             raise ValueError("glu and sgu cannot be turned on at once")
         self.config = c
         self.glu = glu
+        self.tp = tp
         hidden = c.dim * c.ff_mult * (2 if glu else 1)
         pd = c.params_dtype
         self.norm = ScaleNorm(c.dim, c.layer_norm_epsilon, pd)
-        self.proj_in = Dense(c.dim, hidden, param_dtype=pd)
-        self.sgu = (SpatialGatingUnit(c, hidden, hidden // 2)
+        # a GLU's shard holds its columns of both halves (x | gate)
+        self.proj_in = Dense(c.dim, hidden, param_dtype=pd, tp=tp,
+                             parallel="column")
+        self.sgu = (SpatialGatingUnit(c, hidden, hidden // 2, tp)
                     if spatial_gate else None)
         inner = hidden // 2 if (glu or spatial_gate) else hidden
-        self.proj_out = Dense(inner, c.dim, param_dtype=pd)
+        self.proj_out = Dense(inner, c.dim, param_dtype=pd, tp=tp,
+                              parallel="row")
 
     def _activate(self, h):
         h = self.proj_in(h, self.config.compute_dtype)
@@ -332,6 +373,8 @@ class FeedForwardBlock(nn.Module):
     def forward(self, x, group=None):
         h = self._activate(_head(self.norm, self.config, x, group))
         if self.sgu is not None:
+            if self.tp is not None:  # the SGU splits and mixes whole rows
+                h = gather_from_model(h, -1, self.tp.group)
             h = self.sgu(h, group)
         return self.proj_out(h, self.config.compute_dtype)
 

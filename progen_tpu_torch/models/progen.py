@@ -9,7 +9,11 @@ logits in float32.
 
 ``forward`` runs the full sequence through the kernels; given a
 ``parallel.Grid`` whose seq axis is above 1, it runs this rank's shard of
-each sequence (see ``models/layers.py``). With
+each sequence (see ``models/layers.py``). A model built with a grid
+whose model axis is above 1 holds this rank's tensor-parallel shards
+(``parallel/tensor.py``): the embedding's vocabulary rows (looked up
+masked, summed over the model group) and the logits head's columns, so
+its forward returns this rank's vocab/model columns of the logits. With
 ``config.remat`` set and autograd recording, each attention and each
 feed-forward block is recomputed in the backward
 (``torch.utils.checkpoint``), the counterpart of ``nn.remat`` per block.
@@ -45,6 +49,15 @@ from progen_tpu_torch.models.layers import (
     ScaleNorm,
 )
 from progen_tpu_torch.ops.rotary import fixed_pos_embedding
+from progen_tpu_torch.parallel.collectives import _all_gather
+from progen_tpu_torch.parallel.tensor import (
+    TP,
+    check_divisible,
+    layout,
+    shard,
+    unshard,
+    vocab_embedding,
+)
 
 
 def _fields(c) -> list:
@@ -140,55 +153,122 @@ def _lecun_normal(out_features: int, in_features: int,
     return _truncated_normal((out_features, in_features), std, gen)
 
 
+def whole_parameter_shapes(config: ProGenConfig) -> list:
+    """(name, shape) of every parameter of the whole model (no shards),
+    in ``named_parameters`` order: the order the initialiser draws in."""
+    with torch.device("meta"):
+        skeleton = ProGen(config, device="meta", seed=None)
+    return [(n, p.shape) for n, p in skeleton.named_parameters()]
+
+
+@torch.no_grad()
+def init_parameters(module: nn.Module, config: ProGenConfig, seed: int,
+                    tp: TP | None = None) -> None:
+    """Seeded initialisers that mirror flax's: truncated normal 0.02 for
+    the embedding, lecun-normal for every Dense weight, zeros for Dense
+    biases, ones for norm scales and SGU biases, uniform
+    +-sgu_init_eps/seq_len for the SGU weights. Drawn on the CPU in a
+    fixed order over the whole model's tensors, so a seed gives the same
+    weights on any device, and a module holding some of them (a pipeline
+    stage) or shards of them (``tp``) gets its part of the same
+    values."""
+    c = config
+    own = dict(module.named_parameters())
+    gen = torch.Generator().manual_seed(int(seed))
+    eps = c.sgu_init_eps / c.seq_len
+    for name, shape in whole_parameter_shapes(c):
+        leaf = name.rsplit(".", 1)[-1]
+        if name == "embed":
+            value = _truncated_normal(shape, 0.02, gen)
+        elif leaf == "weight":
+            value = _lecun_normal(shape[0], shape[1], gen)
+        elif leaf == "spatial_weights":
+            value = (torch.rand(shape, generator=gen) * 2 - 1) * eps
+        elif leaf in ("scale", "spatial_biases"):
+            value = torch.ones(shape)
+        elif leaf == "bias":
+            value = torch.zeros(shape)
+        else:
+            raise AssertionError(f"no initialiser for {name}")
+        if name in own:
+            if tp is not None:
+                value = shard(value, layout(name, c), tp.size, tp.index)
+            own[name].copy_(value.to(own[name].dtype))
+
+
+def run_blocks(pairs, x, sin, cos, group, remat: bool):
+    """The residual stack over (attention, feed-forward) block pairs. With
+    ``remat``, each block is recomputed in the backward; the recompute
+    runs the block's collectives again, on every rank in the same
+    order."""
+    for attn, ff in pairs:
+        if remat:
+            x = x + checkpoint(attn, x, sin, cos, group, use_reentrant=False)
+            x = x + checkpoint(ff, x, group, use_reentrant=False)
+        else:
+            x = x + attn(x, sin, cos, group)
+            x = x + ff(x, group)
+    return x
+
+
 class ProGen(nn.Module):
     def __init__(self, config: ProGenConfig, *, device="cuda",
-                 seed: int | None = 0):
+                 seed: int | None = 0, grid=None):
         super().__init__()
         dev = resolve_device(device)
         c = config
         self.config = c
+        self.grid = grid
+        self.tp = tp = TP.of(grid)
+        if tp is not None:
+            check_divisible(c, tp.size)
         pd = c.params_dtype
-        self.embed = nn.Parameter(torch.empty(c.num_tokens, c.dim, dtype=pd))
+        vocab = c.num_tokens // (tp.size if tp else 1)
+        self.embed = nn.Parameter(torch.empty(vocab, c.dim, dtype=pd))
         self.attn = nn.ModuleList()
         self.ff = nn.ModuleList()
         for i in range(c.depth):
             use_gmlp = (c.depth - i) <= c.global_mlp_depth
-            self.attn.append(LocalAttentionBlock(c))
+            self.attn.append(LocalAttentionBlock(c, tp))
             self.ff.append(FeedForwardBlock(
-                c, glu=(not use_gmlp) and c.ff_glu, spatial_gate=use_gmlp
-            ))
+                c, glu=(not use_gmlp) and c.ff_glu, spatial_gate=use_gmlp,
+                tp=tp))
         self.norm = ScaleNorm(c.dim, c.layer_norm_epsilon, pd)
-        self.to_logits = Dense(c.dim, c.num_tokens, param_dtype=pd)
+        self.to_logits = Dense(c.dim, c.num_tokens, param_dtype=pd, tp=tp,
+                               parallel="column")
         if seed is not None:  # None: the caller loads a state dict next
             self.reset_parameters(seed)
         self.to(dev)
         self._rope: dict = {}
 
-    @torch.no_grad()
     def reset_parameters(self, seed: int) -> None:
-        """Seeded initialisers that mirror flax's: truncated normal 0.02
-        for the embedding, lecun-normal for every Dense weight, zeros for
-        Dense biases, ones for norm scales and SGU biases, uniform
-        +-sgu_init_eps/seq_len for the SGU weights. Drawn on the CPU in a
-        fixed order, so a seed gives the same weights on any device."""
-        c = self.config
-        gen = torch.Generator().manual_seed(int(seed))
-        eps = c.sgu_init_eps / c.seq_len
-        for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if name == "embed":
-                value = _truncated_normal(p.shape, 0.02, gen)
-            elif leaf == "weight":
-                value = _lecun_normal(p.shape[0], p.shape[1], gen)
-            elif leaf == "spatial_weights":
-                value = (torch.rand(p.shape, generator=gen) * 2 - 1) * eps
-            elif leaf in ("scale", "spatial_biases"):
-                value = torch.ones(p.shape)
-            elif leaf == "bias":
-                value = torch.zeros(p.shape)
-            else:
-                raise AssertionError(f"no initialiser for {name}")
-            p.copy_(value.to(p.dtype))
+        """``init_parameters`` (seeded, drawn on the CPU in a fixed
+        order); a tensor-parallel model takes its shards of the whole
+        model's values."""
+        init_parameters(self, self.config, seed, self.tp)
+
+    def shard_tree(self, whole: dict) -> dict:
+        """This rank's part of a whole tree keyed like the parameters
+        (parameters or moments): its tensor-parallel shards."""
+        if self.tp is None:
+            return whole
+        return {n: shard(t, layout(n, self.config), self.tp.size,
+                         self.tp.index) for n, t in whole.items()}
+
+    @torch.no_grad()
+    def gather_tree(self, tree: dict, device=None, keep: bool = True) -> dict:
+        """The whole tree from this rank's part of it: every rank of the
+        model group calls this together, tensor by tensor; those with
+        ``keep`` get the whole tensors, moved to ``device`` one at a
+        time, the others an empty dict."""
+        out = {}
+        for n, t in tree.items():
+            spec = None if self.tp is None else layout(n, self.config)
+            if spec is not None:
+                t = unshard(_all_gather(t, self.tp.group), spec)
+            if keep:
+                out[n] = t.to(device) if device is not None else t
+        return out
 
     @property
     def device(self) -> torch.device:
@@ -203,8 +283,10 @@ class ProGen(nn.Module):
         return self._rope[key]
 
     def _embed(self, tokens):
-        return F.embedding(tokens.long(),
-                           self.embed.to(self.config.compute_dtype))
+        weight = self.embed.to(self.config.compute_dtype)
+        if self.tp is not None:
+            return vocab_embedding(tokens.long(), weight, self.tp)
+        return F.embedding(tokens.long(), weight)
 
     def _logits(self, x):
         c = self.config
@@ -212,12 +294,16 @@ class ProGen(nn.Module):
                               c.compute_dtype).float()
 
     def forward(self, tokens: torch.Tensor, grid=None) -> torch.Tensor:
-        """tokens (batch, n) ints -> float32 logits (batch, n, num_tokens).
+        """tokens (batch, n) ints -> float32 logits (batch, n, num_tokens),
+        or this rank's num_tokens/model columns of them in a
+        tensor-parallel model.
 
-        With ``grid`` (``parallel.Grid``) of seq size S > 1, ``tokens`` are
-        this rank's positions ``grid.seq_slice(S * n)`` of each sequence,
-        and the logits are theirs; every rank of the seq group calls
-        forward together, as its collectives need."""
+        With ``grid`` (``parallel.Grid``; a tensor-parallel model always
+        runs on the one it was built with) of seq size S > 1, ``tokens``
+        are this rank's
+        positions ``grid.seq_slice(S * n)`` of each sequence, and the
+        logits are theirs; every rank of the grid's groups calls forward
+        together, as its collectives need."""
         return self._logits(self._blocks(tokens, grid))
 
     def features(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -231,6 +317,11 @@ class ProGen(nn.Module):
         if n % self.config.window_size:
             raise ValueError("sequence length must be a multiple of "
                              f"window_size={self.config.window_size}")
+        if self.tp is not None:
+            if grid is not None and grid is not self.grid:
+                raise ValueError("a tensor-parallel model runs on its own "
+                                 "grid")
+            grid = self.grid
         group = grid.seq_group if grid is not None and grid.seq > 1 else None
         x = self._embed(tokens)
         if group is None:
@@ -239,17 +330,7 @@ class ProGen(nn.Module):
             rows = grid.seq_slice(n * grid.seq)
             sin, cos = (t[rows] for t in self._tables(n * grid.seq))
         remat = self.config.remat and torch.is_grad_enabled()
-        for attn, ff in zip(self.attn, self.ff):
-            if remat:
-                # the recompute runs the block's collectives again, on
-                # every rank in the same order
-                x = x + checkpoint(attn, x, sin, cos, group,
-                                   use_reentrant=False)
-                x = x + checkpoint(ff, x, group, use_reentrant=False)
-            else:
-                x = x + attn(x, sin, cos, group)
-                x = x + ff(x, group)
-        return x
+        return run_blocks(zip(self.attn, self.ff), x, sin, cos, group, remat)
 
     def init_cache(self, batch: int) -> DecodeCache:
         """A fresh decode state for ``batch`` rows, each at position 0."""
@@ -267,6 +348,9 @@ class ProGen(nn.Module):
         next position. Updates ``cache`` in place and advances every
         row's position by one."""
         c = self.config
+        if self.tp is not None:
+            raise NotImplementedError("decode_step runs on a whole model; "
+                                      "gather a tensor-parallel one first")
         if cache.top >= c.seq_len:
             raise ValueError(f"decode position {cache.top} is past seq_len")
         x = self._embed(tokens.reshape(-1, 1))

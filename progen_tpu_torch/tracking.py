@@ -22,15 +22,9 @@ import uuid
 from pathlib import Path
 from typing import Optional
 
-import torch
+from progen_tpu_torch.parallel.groups import is_coordinator
 
-
-def is_coordinator() -> bool:
-    """Rank 0 of an initialised process group, or the only process."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank() == 0
-    return True
+__all__ = ["is_coordinator", "make_tracker", "render_sample_html"]
 
 
 def render_sample_html(prime_str: str, sampled_str: str) -> str:

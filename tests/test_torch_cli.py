@@ -145,10 +145,7 @@ def test_new_asks_then_resets(ws, monkeypatch, answer):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--data_parallel"], ["--mesh_data", "2"], ["--mesh_seq", "2"],
-    ["--mesh_model", "2"], ["--ring_attn"], ["--zero1"],
-    ["--mesh_pipe", "2"], ["--pipe_microbatches", "2"],
-    ["--pipe_schedule", "1f1b"], ["--async_checkpoint"], ["--hardware_rng"],
+    ["--async_checkpoint"], ["--hardware_rng"],
     ["--profile_dir", "p"], ["--profile_pin", "p"], ["--stall_timeout", "1"],
     ["--stall_escalate_after", "1"], ["--anomaly_factor", "1"],
     ["--anomaly_patience", "1"], ["--prom_file", "p"], ["--prom_port", "1"],

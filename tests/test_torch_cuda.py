@@ -772,3 +772,111 @@ def test_embed_launches_one_forward_and_decode_none(dev):
     emb = next(x for x in comps if x.request_id == "e").embedding
     assert emb.shape == (c.dim,) and bool(torch.isfinite(
         torch.from_numpy(emb)).all())
+
+
+def _recorded_step(step, state, batch):
+    """One ``step(state, batch)``: the loss and the gradients it hands the
+    optimizer (this rank's part of them)."""
+    seen = {}
+    update = state.optimizer.update
+
+    def record(grads, norm=None):
+        seen.update({n: g.clone() for n, g in grads.items()})
+        return update(grads, norm)
+
+    state.optimizer.update = record
+    _, metrics = step(state, batch)
+    state.optimizer.update = update
+    return metrics["loss"].item(), seen
+
+
+def _rank_grid_steps(rank, port, out_dir):
+    """One of two ranks sharing card 0 over gloo: one tensor-parallel
+    (model 2) step and one step of a 2-stage GPipe pipeline (M = 2) of a
+    small model; saves the losses and the gradients, gathered whole."""
+    import os
+
+    from progen_tpu_torch import ProGenConfig
+    from progen_tpu_torch.parallel import init_grid
+    from progen_tpu_torch.parallel.pipeline import (
+        init_pipeline_state,
+        make_pipeline_train_step,
+    )
+    from progen_tpu_torch.training.step import (
+        init_train_state,
+        make_train_step,
+    )
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE="2",
+                      GLOO_SOCKET_IFNAME="lo")
+    torch.cuda.set_device(0)
+    cfg = ProGenConfig(**SMALL)
+    batch = _grid_batch()
+    out = {}
+    grid = init_grid(1, 1, "gloo", model=2, timeout=120)
+    state = init_train_state(cfg, device="cuda", seed=0, grid=grid)
+    loss, grads = _recorded_step(make_train_step(grid), state, batch)
+    out["tp"] = (loss, {n: g.cpu() for n, g in
+                        state.model.gather_tree(grads).items()})
+    del state
+    state = init_pipeline_state(cfg, device="cuda", seed=0, grid=grid)
+    loss, grads = _recorded_step(make_pipeline_train_step(grid, 2), state,
+                                 batch)
+    out["gpipe"] = (loss, {n: g.cpu() for n, g in
+                           state.model.gather_tree(grads).items()})
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def _grid_batch():
+    gen = torch.Generator().manual_seed(0)
+    return torch.randint(1, 32, (2, 4, 65), generator=gen)
+
+
+def test_two_ranks_tensor_and_pipeline_parallel_on_the_card(dev, tmp_path):
+    """Two gloo ranks on one card take one tensor-parallel (model 2) step
+    and one 2-stage GPipe step of a small bfloat16 model; each step's
+    loss agrees with one process's to 1e-2 relative and the gradients it
+    hands the optimizer to 5e-2 of each tensor's largest, as the
+    sequence-parallel test above holds its gradients."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from progen_tpu_torch import ProGenConfig
+    from progen_tpu_torch.ops import _build
+    from progen_tpu_torch.training.step import (
+        init_train_state,
+        make_train_step,
+    )
+
+    _build.build_all()  # once, here, not in both ranks at once
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_rank_grid_steps,
+                         args=(r, port, str(tmp_path))) for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=300)
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+    assert not alive and all(p.exitcode == 0 for p in procs), \
+        [p.exitcode for p in procs]
+    res = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    state = init_train_state(ProGenConfig(**SMALL), device="cuda", seed=0)
+    want_loss, want = _recorded_step(make_train_step(), state,
+                                     _grid_batch())
+    for path in ("tp", "gpipe"):
+        loss, grads = res[0][path]
+        assert loss == pytest.approx(want_loss, rel=1e-2), path
+        assert grads.keys() == want.keys()
+        for name, g in want.items():
+            scale = g.abs().max().item()
+            torch.testing.assert_close(grads[name], g.cpu(),
+                                       atol=5e-2 * scale, rtol=0,
+                                       msg=lambda m: f"{path} {name}: {m}")

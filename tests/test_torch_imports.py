@@ -65,7 +65,9 @@ def test_package_has_the_slice_modules():
                 "workloads.infill", "workloads.embeddings", "cli.serve",
                 "workloads", "workloads.mutagenesis", "resilience",
                 "resilience.chaos", "resilience.retry", "ops.quant",
-                "cli.batch_score", "cli.scan", "cli.convert"):
+                "cli.batch_score", "cli.scan", "cli.convert",
+                "parallel.tensor", "parallel.partition",
+                "parallel.pipeline", "parallel.pipeline_1f1b"):
         assert f"progen_tpu_torch.{mod}" in names
 
 
