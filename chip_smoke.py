@@ -81,8 +81,8 @@ Phases, one line each:
      steps (batch 4 x 4, checkpoint and validate every 2, a sample at step
      0), then resumes for 2 more; cli.eval walks the valid split;
      cli.sample decodes one sequence. With the launch counts set to 0
-     just before and read just after, every step must launch A1 192, A2
-     96, L1 384 and L2 16 times and each eval forward A1 24, L1 48, L2 2.
+     just before and read just after, every step must launch A1 48, A2
+     24, L1 96 and L2 16 times and each eval forward A1 6, L1 12, L2 2.
      Checks: every loss finite; the first run's final checkpoint restores
      bit for bit (parameters, moments, count, step, cursor, model
      config); the resumed run's first batch is the records after the
@@ -93,7 +93,8 @@ Phases, one line each:
      tokens/s beside phase 5's, the checkpoint's bytes and save and
      restore seconds, the padded share of the synthetic batches, the
      eval loss and the phase's seconds;
-  9. serve, the slot-pool engine at base.toml in bfloat16: a ServeEngine
+  9. serve, the slot-pool engine at base.toml's widths with its depth cut
+     to 6 (SERVE_DEPTH), in bfloat16: a ServeEngine
      of 8 slots (max_len 256) behind a Scheduler (prefill_chunk 32, a
      512 MiB PrefixCache) answers 13 requests, more than the slots: a
      top_k = 1 occupant that stops at its first draw (its slot is reused
@@ -103,7 +104,7 @@ Phases, one line each:
      scaffold (primes 160 and 144: the second hits the prefix cache) and
      one embedding. With the launch counts set to 0 just before and read
      just after, the run must launch exactly one forward's kernels (the
-     embedding's: A1 24, L1 48, L2 2) and none in prefill or decode.
+     embedding's: A1 6, L1 12, L2 2) and none in prefill or decode.
      Checks: every generate stream against sample_fast on the card with
      the same seed, knobs and template, bit for bit, or, where the batch
      of 8 rounds otherwise than batch 1, with a near tie at the first
@@ -126,10 +127,11 @@ Phases, one line each:
      to the first run's. It prints decode steps/s and tokens/s, TTFT p50
      and p99, prefill ms per fed token, the embedding's ms, the pool's
      device bytes and the phase's seconds, beside the card;
- 10. workloads, the protein-design entry points at base.toml in bfloat16,
+ 10. workloads, the protein-design entry points at base.toml's widths
+     with its depth cut to 6 (WL_DEPTH), in bfloat16,
      in build/chip_smoke_workloads/ (removed afterwards): A1, L1 and L2
      first held against their plain versions at the phase's new shapes
-     (batch 32 at n = 1024; n = w = 512 at batch 8); the base model
+     (batch 32 at n = 1024; n = w = 512 at batch 8); the model
      written as a reference ckpt_*.pkl (Haiku names, by an inverse of the
      converter's mapping kept in this script) and converted by cli.convert
      in a child process, its parameters bit-equal to the model's;
@@ -148,7 +150,7 @@ Phases, one line each:
      to sample_fast on the dequantised weights, and the int8 and bfloat16
      engines' decode rates at 8 slots in alternating runs. With the launch
      counts set to 0 just before and read just after each counted run, the
-     scorer must launch A1 192, L1 384, L2 16, the scan A1 504, L1 1008, L2
+     scorer must launch A1 48, L1 96, L2 16, the scan A1 126, L1 252, L2
      42, cli.scan 6 forwards' and the n = w scorer 2 forwards' kernels. It
      prints sequences/s and tokens/s, mutants/s, the conversion's bytes
      and seconds, the int8 report, bytes and decode rates beside the
@@ -175,16 +177,45 @@ Phases, one line each:
      moment bytes halved; GPipe and then 1F1B on 2 stages (11 uniform
      layers each, the gMLP layers and the head on the last) with 4
      microbatches of (1, 8, 1025), each held against one process by
-     phase 7's rule and 1F1B's first gradients against GPipe's, each
-     stage's launches exact; and cli.train --mesh_model 2 --dist_backend
-     gloo --mixed_precision at base.toml on the synthetic FASTA of phase
-     8 (batch 4 x 1, 3 steps, its cadenced sample cut to 32 tokens):
+     phase 7's rule and 1F1B's first gradients against GPipe's, then 1F1B
+     again with 8 microbatches (PIPE_M_LONG), each stage's launches exact;
+     stage 0's peak growth (the peak less what the window opened with)
+     must be 1F1B's at most GPipe's at M = 4 and not rise from M = 4 to
+     M = 8; and cli.train --mesh_model 2 --dist_backend
+     gloo --mixed_precision at base.toml's widths with its depth cut to 6
+     (GRID_CLI_DEPTH) on the synthetic FASTA of phase 8 (batch 4 x 1, 3
+     steps, its cadenced sample cut to 32 tokens):
      the coordinator's checkpoint must hold each rank's parameter shards
      bit for bit (sha256), and the single-process cli.train resumes it
      for 1 step. It prints each path's step ms, tokens/s, the model
-     group's all-reduce ms per step, peak bytes per rank and the phase's
-     seconds by part, beside the card. Two ranks share one card here, so
-     their step times record the path, not scaling.
+     group's all-reduce ms per step, peak bytes per rank (raw, and as
+     growth over the state: every timed run keeps its first gradients,
+     initial parameters and change in host memory, so the peak counts the
+     state and the step alone) and the phase's seconds by part, beside
+     the card. Two ranks share one card here, so their step times record
+     the path, not scaling;
+ 12. resilience, the training-side telemetry and fault tolerance: in
+     build/chip_smoke_resilience/ (removed afterwards), the synthetic
+     FASTA of phase 8 through generate_data, then python -m
+     progen_tpu_torch.cli.train in a child process at base.toml whole
+     (24 layers, 401,378,560 parameters, --mixed_precision, batch 4 x 4,
+     7 steps) with --async_checkpoint --checkpoint_every 3 --prom_file
+     --profile_dir --stall_timeout 300 --stall_escalate_after 2
+     --anomaly_patience 3 and PROGEN_CHAOS=train/loss:nan@3: it must exit
+     0 after logging "anomaly rollback 1/3" (the state restored from an
+     asynchronous checkpoint); its exposition's goodput buckets must sum
+     to its wall clock within 0.5%, carry goodput_pct, mfu,
+     hbm_in_use_gb and anomaly_rollbacks_total > 0, and its mfu lie in
+     (0, 1] within 1% of tokens_per_sec_per_chip x flops_per_token /
+     989e12; its trace must name fwd_tc_kernel and the train/step span;
+     its final checkpoint must restore, its cursor and step the
+     rollback's plus the steps after it. Then, in this process at base:
+     hbm_gauges() non-empty; a blocking save of a train state, an
+     asynchronous save of it, one train step (launches counted), the
+     asynchronous save finalized: its files must hash as the blocking
+     save's. It prints the CLI's step time, tokens/s and MFU beside
+     phase 5's and phase 8's, the goodput split, the seconds each save
+     costs the loop, the profile window's seconds and the phase's.
 
 Phase 2 also holds A4 (forward and both backwards, with a halo) against
 its plain versions at long8k's shard shapes with 2 shards, and runs the
@@ -1131,8 +1162,11 @@ def drive_train_path(cfg, state, batch) -> dict:
 
 
 def rel_cos(a: torch.Tensor, b: torch.Tensor) -> tuple:
-    """(|a - b| / |b|, cosine of a and b), over the whole tensor."""
-    a, b = a.double().flatten(), b.double().flatten()
+    """(|a - b| / |b|, cosine of a and b), over the whole tensor, computed
+    on the card in float64 (either may be kept on the host)."""
+    # moved as they are, then widened on the card (a widening copy from
+    # the host would convert there and move twice the bytes)
+    a, b = (t.to("cuda").to(torch.float64).flatten() for t in (a, b))
     nb = b.norm().item()
     rel = (a - b).norm().item() / nb if nb > 0 else (a - b).norm().item()
     cos = (a @ b).item() / max(a.norm().item() * nb, 1e-300)
@@ -1190,11 +1224,14 @@ def check_gradients(cfg, state, batch) -> dict:
 
 def step_grads(step, state, batch) -> tuple:
     """One ``step(state, batch)``; returns the averaged, unclipped
-    gradients it hands the optimizer, and its metrics."""
+    gradients it hands the optimizer, copied to the host as it gets them
+    (so no copy of them stays on the card to count in a peak), and its
+    metrics."""
     sink, update = [], state.optimizer.update
 
     def record(grads, norm=None):
-        sink.append({n: g.clone() for n, g in grads.items()})
+        sink.append({n: g.detach().to("cpu", copy=True)
+                     for n, g in grads.items()})
         return update(grads, norm)
 
     with mock.patch.object(state.optimizer, "update", record):
@@ -1258,10 +1295,13 @@ def seqpar_batch(cfg) -> torch.Tensor:
 def timed_steps(step, state, batch) -> dict:
     """SEQPAR_STEPS steps of ``step`` with every launch count set to 0
     just before: each step's CUDA-event time, metrics and launches; the
-    first step's gradients (as the optimizer gets them) and the peak
-    device memory."""
+    first step's gradients (as the optimizer gets them, on the host:
+    ``step_grads``); the peak device memory, raw and as its growth over
+    what was allocated when the window opened (the state itself and
+    anything the caller holds)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    at_reset = torch.cuda.memory_allocated()
     reset_counts()
     steps, grads = [], None
     for i in range(SEQPAR_STEPS):
@@ -1280,9 +1320,10 @@ def timed_steps(step, state, batch) -> dict:
                           launches={k: after[k] - before[k] for k in after},
                           **{k: v.item() for k, v in m.items()}))
     warm = [st["ms"] for st in steps[1:]]
+    peak = torch.cuda.max_memory_allocated()
     return dict(grads=grads, steps=steps, launches=launch_counts(),
-                step_ms=sum(warm) / len(warm),
-                peak_memory_bytes=torch.cuda.max_memory_allocated())
+                step_ms=sum(warm) / len(warm), peak_memory_bytes=peak,
+                peak_growth_bytes=peak - at_reset)
 
 
 def time_all_reduce(cfg, grid) -> float:
@@ -1475,12 +1516,15 @@ def phase_seqpar(cfg, card: str) -> dict:
                                / 1e3),
         peak_memory_bytes_per_rank=[r["bf16"]["peak_memory_bytes"]
                                     for r in ranks],
+        peak_growth_bytes_per_rank=[r["bf16"]["peak_growth_bytes"]
+                                    for r in ranks],
         gradient_all_reduce_ms_per_rank=[r["gradient_all_reduce_ms"]
                                          for r in ranks],
         halo_step=ranks[0]["halo_step"],
         single_step_ms=bf["step_ms"],
         single_tokens_per_s=tokens / (bf["step_ms"] / 1e3),
         single_peak_memory_bytes=bf["peak_memory_bytes"],
+        single_peak_growth_bytes=bf["peak_growth_bytes"],
         single_launches=bf["launches"],
         losses=[st["loss"] for st in ranks[0]["bf16"]["steps"]],
         single_losses=[st["loss"] for st in bf["steps"]],
@@ -1822,7 +1866,11 @@ def phase_cli(cfg, train: dict) -> dict:
 
 
 
-# phase 9: the serving engine and cli.serve, at base.toml in bfloat16
+# phase 9: the serving engine and cli.serve, at base.toml's widths in
+# bfloat16, depth cut to SERVE_DEPTH: at 24 layers the phase took 176 s of
+# the script's 1,200 s on an H100 80GB HBM3 at 700 W, and the host's
+# speed moves it by up to 1.5x
+SERVE_DEPTH = 6
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_CHUNK, SERVE_CACHE_MIB = 8, 256, 32, 512
 SERVE_PARITY = [(4, 48), (9, 56), (14, 64), (20, 72), (26, 96), (32, 192)]
 SERVE_KNOBS = dict(temperature=0.8, top_p=0.95)
@@ -2191,7 +2239,7 @@ def phase_serve_cli(model, engine_embed) -> dict:
 
 
 def phase_serve(cfg, gen_bound: float, card: str) -> dict:
-    """Phase 9: the serving engine at base.toml in bfloat16 (see the
+    """Phase 9: the serving engine at base.toml's widths in bfloat16 (see the
     module docstring), then cli.serve in child processes."""
     from progen_tpu_torch import ProGen
     from progen_tpu_torch.serving import PrefixCache, ServeEngine
@@ -2794,9 +2842,15 @@ def int8_serving(model) -> dict:
                 timed_s=timed_s)
 
 
+# phase 10 runs at base.toml's widths with its depth cut to WL_DEPTH: at
+# 24 layers its conversion and int8 serving took 111 of its 153 s (H100
+# 80GB HBM3, 700 W)
+WL_DEPTH = 6
+
+
 def phase_workloads(cfg, score: dict, card: str) -> dict:
-    """Phase 10: the workloads at base.toml in bfloat16 (see the module
-    docstring), in a directory under build/ removed afterwards."""
+    """Phase 10: the workloads at base.toml's widths in bfloat16 (see the
+    module docstring), in a directory under build/ removed afterwards."""
     import shutil
 
     from progen_tpu_torch import ProGen
@@ -2858,7 +2912,10 @@ TP_ACCUM, TP_MICRO = 2, 2  # large.toml's (2, 2, 1025) batch
 F32_DEPTH = 4  # the float32 rule's model: base widths, depth cut to 4
 ZERO1_ACCUM, ZERO1_MICRO = 2, 4
 PIPE_MICRO, PIPE_M = 8, 4  # (1, 8, 1025), 4 microbatches of 2 rows
+PIPE_M_LONG = 2 * PIPE_M  # 1F1B's memory check: 8 microbatches of 1 row
+PIPE_RUNS = ("gpipe", "1f1b", "1f1b_m8")
 GRID_CLI_STEPS, GRID_CLI_BATCH = 3, 4  # batch 4 x 1, then 1 resumed step
+GRID_CLI_DEPTH = 6  # base.toml's widths; at 24 the part ran 49-90 s
 GRID_SAMPLE_TOKENS = 32  # the CLI's cadenced sample, cut from 1024
 # the gradient cosine of a grid against one process in bfloat16. The
 # pipelines compute every product whole, as one process does, and keep
@@ -2996,6 +3053,10 @@ def clone_tree(tree: dict) -> dict:
     return {n: t.detach().clone() for n, t in tree.items()}
 
 
+def host_tree(tree: dict) -> dict:
+    return {n: t.detach().to("cpu", copy=True) for n, t in tree.items()}
+
+
 def steps_loss_rel(a: list, b: list) -> float:
     return max(abs(x["loss"] - y["loss"]) / abs(y["loss"])
                for x, y in zip(a, b))
@@ -3025,14 +3086,15 @@ def grid_run(state, step, batch, group=None) -> tuple:
     """GRID_STEPS (= SEQPAR_STEPS) timed steps on a grid state, each
     rank's launches counted per step; returns (record, the first step's
     gradients and the parameters' change, this rank's parts, and the
-    initial parameters, this rank's part). With ``group``, the host time
-    of its all_reduces per step."""
-    p0 = clone_tree(local_tree(state.model))
+    initial parameters, this rank's part, all three on the host, so the
+    window's peak counts the state and the step alone). With ``group``,
+    the host time of its all_reduces per step."""
+    p0 = host_tree(local_tree(state.model))
     sink = []
     with (timed_all_reduce(group, sink) if group is not None
           else contextlib.nullcontext()):
         run = timed_steps(step, state, batch)
-    delta = {n: p.float() - p0[n].float()
+    delta = {n: (p.float() - p0[n].to(p.device).float()).cpu()
              for n, p in local_tree(state.model).items()}
     grads = run.pop("grads")
     if group is not None:
@@ -3042,9 +3104,13 @@ def grid_run(state, step, batch, group=None) -> tuple:
 
 
 def whole_on_rank0(model, tree: dict, rank: int):
-    """``tree`` gathered whole onto rank 0's card (every rank of the
+    """``tree`` (this rank's part, on the host or the card) gathered whole
+    into rank 0's host memory, one tensor at a time (every rank of the
     model group calls this); None elsewhere."""
-    out = model.gather_tree(tree, keep=rank == 0)
+    tree = {n: t.to(model.device) for n, t in tree.items()}
+    out = model.gather_tree(tree, device="cpu", keep=rank == 0)
+    del tree
+    torch.cuda.empty_cache()
     return out if rank == 0 else None
 
 
@@ -3062,7 +3128,7 @@ def single_run(cfg, sd0: dict, batch, rank: int) -> tuple:
     state.model.load_state_dict(sd0)
     run = timed_steps(make_train_step(), state, batch)
     grads = run.pop("grads")
-    delta = {n: p.float() - sd0[n].float()
+    delta = {n: (p.float() - sd0[n].to(p.device).float()).cpu()
              for n, p in local_tree(state.model).items()}
     del state
     torch.cuda.empty_cache()
@@ -3074,9 +3140,14 @@ def distances(got: tuple, want: tuple) -> dict:
     change) against another: every step's loss, and the largest
     per-tensor relative distance (with the smallest cosine) of the
     gradients and of the change."""
-    g = max_rel(got[1], want[1])
-    u = max_rel(got[2], want[2])
-    cos = sorted((rel_cos(got[1][n], want[1][n])[1], n) for n in want[1])
+    got_g, got_u, want_g, want_u = (
+        {n: t.to("cuda") for n, t in tree.items()}
+        for tree in (got[1], got[2], want[1], want[2]))  # once, not a pass
+    g = max_rel(got_g, want_g)
+    u = max_rel(got_u, want_u)
+    cos = sorted((rel_cos(got_g[n], want_g[n])[1], n) for n in want_g)
+    del got_g, got_u, want_g, want_u
+    torch.cuda.empty_cache()
     return dict(loss=steps_loss_rel(got[0]["steps"], want[0]["steps"]),
                 grads=g[0], grads_tensor=g[1], grads_min_cos=g[2],
                 grads_min_cos_tensor=g[3], grads_lowest_cos=cos[:4],
@@ -3149,6 +3220,7 @@ def tp_part(rank, grid, cfg, dtype: str, accum: int, micro: int,
     torch.cuda.empty_cache()
     record = dict(steps=run["steps"], step_ms=run["step_ms"],
                   peak_memory_bytes=run["peak_memory_bytes"],
+                  peak_growth_bytes=run["peak_growth_bytes"],
                   model_all_reduce_ms_per_step=run[
                       "model_all_reduce_ms_per_step"],
                   model_all_reduces_per_step=run[
@@ -3181,7 +3253,7 @@ def zero1_part(rank, grid, cfg) -> dict:
         if cut:
             state.model.load_state_dict(p0)
         else:
-            p0 = clone_tree(local_tree(state.model))
+            p0 = host_tree(local_tree(state.model))
         run = timed_steps(make_train_step(grid), state, batch)
         run.pop("grads")
         opt = state.optimizer
@@ -3189,7 +3261,7 @@ def zero1_part(rank, grid, cfg) -> dict:
                                   + list(opt.nu.values()))
         run["moments_cut"] = sum(d is not None for d in opt.cut.values())
         runs[cut] = run
-        params[cut] = clone_tree(local_tree(state.model))
+        params[cut] = host_tree(local_tree(state.model))
         del state, opt
         torch.cuda.empty_cache()
     differing = [n for n in params[False]
@@ -3203,6 +3275,7 @@ def zero1_part(rank, grid, cfg) -> dict:
                 plain_moment_bytes=runs[False]["moment_bytes"],
                 moments_cut=runs[True]["moments_cut"],
                 peak_memory_bytes=runs[True]["peak_memory_bytes"],
+                peak_growth_bytes=runs[True]["peak_growth_bytes"],
                 tensors_differing=differing)
 
 
@@ -3228,7 +3301,9 @@ def pipe_part(rank, grid, cfg) -> dict:
     """GPipe, then 1F1B, on 2 stages (11 uniform layers each) with M = 4
     on (1, 8, 1025), from the same initial parameters, each held against
     one process by phase 7's rule, and 1F1B's first gradients against
-    GPipe's."""
+    GPipe's; then 1F1B again with M = 8 (PIPE_M_LONG), timed and counted
+    only, for its memory: the schedule keeps O(stages) activations, so
+    its peak growth must not rise with M."""
     from progen_tpu_torch.parallel.pipeline import (
         init_pipeline_state,
         make_pipeline_train_step,
@@ -3237,25 +3312,30 @@ def pipe_part(rank, grid, cfg) -> dict:
 
     batch = grid_batch(cfg, 1, PIPE_MICRO, 13).cuda()
     runs, p0, sd0, record = {}, None, None, {}
-    for name, make in (("gpipe", make_pipeline_train_step),
-                       ("1f1b", make_1f1b_train_step)):
+    makers = (make_pipeline_train_step, make_1f1b_train_step,
+              make_1f1b_train_step)
+    for name, make, m in zip(PIPE_RUNS, makers,
+                             (PIPE_M, PIPE_M, PIPE_M_LONG)):
         state = init_pipeline_state(cfg, device="cuda",
                                     seed=0 if p0 is None else None,
                                     grid=grid)
         if p0 is not None:
             state.model.load_state_dict(p0)
-        run, grads, delta, p_init = grid_run(state, make(grid, PIPE_M),
-                                             batch)
+        run, grads, delta, p_init = grid_run(state, make(grid, m), batch)
         model = state.model
         if p0 is None:
             p0 = p_init
             sd0 = whole_on_rank0(model, p0, rank)
-        runs[name] = (run, whole_on_rank0(model, grads, rank),
-                      whole_on_rank0(model, delta, rank))
+        if m == PIPE_M:
+            runs[name] = (run, whole_on_rank0(model, grads, rank),
+                          whole_on_rank0(model, delta, rank))
         record[name] = dict(steps=run["steps"], step_ms=run["step_ms"],
+                            microbatches=m,
                             peak_memory_bytes=run["peak_memory_bytes"],
+                            peak_growth_bytes=run["peak_growth_bytes"],
                             launches_per_step=pipe_per_step(
-                                cfg, grid.model_index, grid.model, name))
+                                cfg, grid.model_index, grid.model,
+                                "gpipe" if name == "gpipe" else "1f1b", m))
         del state, model, grads, delta
         torch.cuda.empty_cache()
     del p0
@@ -3274,6 +3354,16 @@ def pipe_part(rank, grid, cfg) -> dict:
         if not (g["max_rel"] <= own["grads"] and g["min_cos"] >= SEQPAR_COS):
             record["judge"]["bad"].append(
                 f"1F1B's first gradients off GPipe's: {g}")
+        # the schedule's memory: stage 0's growth over the state, 1F1B's
+        # at most GPipe's at M = PIPE_M and no higher at PIPE_M_LONG
+        grow = {k: record[k]["peak_growth_bytes"]
+                for k in PIPE_RUNS}
+        if not (grow["1f1b"] <= grow["gpipe"]
+                and grow["1f1b_m8"] <= grow["1f1b"]):
+            record["judge"]["bad"].append(
+                f"stage 0's peak growth: GPipe {grow['gpipe']} at M = "
+                f"{PIPE_M}, 1F1B {grow['1f1b']} at M = {PIPE_M} and "
+                f"{grow['1f1b_m8']} at M = {PIPE_M_LONG}")
     del sd0
     torch.cuda.empty_cache()
     torch.distributed.barrier()
@@ -3282,7 +3372,7 @@ def pipe_part(rank, grid, cfg) -> dict:
 
 def grid_cli_args(work: Path, steps: int, batch: int) -> list:
     return ["--device", "cuda", "--wandb_off", "--mixed_precision",
-            "--config_path", str(REPO / "configs" / "model"),
+            "--config_path", str(work / "model_cfg"),
             "--model_name", "base", "--data_path", str(work / "data"),
             "--checkpoint_path", str(work / "ckpts"), "--batch_size",
             str(batch), "--grad_accum_every", "1", "--checkpoint_every",
@@ -3464,6 +3554,9 @@ def phase_grid(base, card: str, tc: dict) -> dict:
     work = REPO / "build" / "chip_smoke_grid"
     shutil.rmtree(work, ignore_errors=True)
     (work / "data_cfg").mkdir(parents=True)
+    (work / "model_cfg").mkdir()
+    cut_model_toml(work / "model_cfg" / "base.toml", GRID_CLI_DEPTH)
+    clicfg = dataclasses.replace(base, depth=GRID_CLI_DEPTH)
     try:
         t = time.perf_counter()
         fasta = work / "uniref50_synthetic.fasta"
@@ -3477,8 +3570,8 @@ def phase_grid(base, card: str, tc: dict) -> dict:
         ranks = spawn_grid(work)
         parts["ranks"] = time.perf_counter() - t
         t = time.perf_counter()
-        ckpt = check_grid_checkpoint(base, work, ranks)
-        resumed = resume_grid_cli(base, work)
+        ckpt = check_grid_checkpoint(clicfg, work, ranks)
+        resumed = resume_grid_cli(clicfg, work)
         parts["resume"] = time.perf_counter() - t
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -3497,7 +3590,7 @@ def phase_grid(base, card: str, tc: dict) -> dict:
                                f"launched {st['launches']}, not {w}")
                 if not np.isfinite(st["loss"]) or st["skipped"]:
                     bad.append(f"rank {r['rank']} {key} step {i + 1}: {st}")
-        for name in ("gpipe", "1f1b"):
+        for name in PIPE_RUNS:
             w = r["pipe"][name]["launches_per_step"]
             for i, st in enumerate(r["pipe"][name]["steps"]):
                 if st["launches"] != w:
@@ -3514,7 +3607,7 @@ def phase_grid(base, card: str, tc: dict) -> dict:
                        f" of {z['plain_moment_bytes']} bytes")
         cli = r["cli"]
         if [c for c in cli["step_launches"]
-                if c != per_step(base, accum=1)]:
+                if c != per_step(clicfg, accum=1)]:
             bad.append(f"rank {r['rank']} cli launches "
                        f"{cli['step_launches']}")
         if len(cli["steps"]) != GRID_CLI_STEPS or not all(
@@ -3532,7 +3625,7 @@ def phase_grid(base, card: str, tc: dict) -> dict:
     cursor = GRID_CLI_STEPS * GRID_CLI_BATCH
     if (resumed["start_seq_index"], resumed["step"]) != \
             (cursor, GRID_CLI_STEPS + 1) or resumed["step_launches"] != \
-            [per_step(base, accum=1)] or not all(
+            [per_step(clicfg, accum=1)] or not all(
             np.isfinite(s["loss"]) for s in resumed["steps"]):
         bad.append(f"the single-process resume: {resumed}")
 
@@ -3552,6 +3645,7 @@ def phase_grid(base, card: str, tc: dict) -> dict:
                 r["model_all_reduce_ms_per_step"] for r in tp],
             model_all_reduces_per_step=tp[0]["model_all_reduces_per_step"],
             peak_memory_bytes_per_rank=[r["peak_memory_bytes"] for r in tp],
+            peak_growth_bytes_per_rank=[r["peak_growth_bytes"] for r in tp],
             losses=[s["loss"] for s in tp[0]["steps"]],
             **{k: v for k, v in ranks[0]["tp_large"]["judge"].items()
                if k != "bad"}),
@@ -3564,7 +3658,7 @@ def phase_grid(base, card: str, tc: dict) -> dict:
                    **{k: [r["zero1"][k] for r in ranks] for k in (
                        "step_ms", "plain_step_ms", "moment_bytes",
                        "plain_moment_bytes", "moments_cut",
-                       "peak_memory_bytes")},
+                       "peak_memory_bytes", "peak_growth_bytes")},
                    losses=[s["loss"] for s in ranks[0]["zero1"]["steps"]],
                    parameters_bit_equal=not any(
                        r["zero1"]["tensors_differing"] for r in ranks)),
@@ -3579,13 +3673,18 @@ def phase_grid(base, card: str, tc: dict) -> dict:
                       peak_memory_bytes_per_stage=[
                           r["pipe"][name]["peak_memory_bytes"]
                           for r in ranks],
+                      peak_growth_bytes_per_stage=[
+                          r["pipe"][name]["peak_growth_bytes"]
+                          for r in ranks],
+                      microbatches=ranks[0]["pipe"][name]["microbatches"],
                       losses=[s["loss"] for s in
                               ranks[0]["pipe"][name]["steps"]])
-                     for name in ("gpipe", "1f1b")},
+                     for name in PIPE_RUNS},
                   f1b_vs_gpipe_grads=ranks[0]["pipe"]["1f1b_vs_gpipe_grads"],
                   **{k: v for k, v in ranks[0]["pipe"]["judge"].items()
                      if k != "bad"}),
-        cli=dict(steps=[{k: s[k] for k in ("step", "loss", "ms",
+        cli=dict(depth=GRID_CLI_DEPTH,
+                 steps=[{k: s[k] for k in ("step", "loss", "ms",
                                            "tokens_per_s")}
                         for s in ranks[0]["cli"]["steps"]],
                  checkpoint=ckpt, resumed=resumed,
@@ -3599,12 +3698,255 @@ def phase_grid(base, card: str, tc: dict) -> dict:
                        for key in ("tp_large", "tp_f32", "zero1")
                        for st in r[key]["steps"])
                 + sum(st["launches"][k] for r in ranks
-                      for name in ("gpipe", "1f1b")
+                      for name in PIPE_RUNS
                       for st in r["pipe"][name]["steps"])
                 + sum(c[k] for r in ranks for c in r["cli"]["step_launches"])
                 + resumed["launches"][k]
                 for k in per_forward(base)}
     return dict(out, launches=launches)
+
+
+# phase 12: cli.train's telemetry and resilience at base.toml, whole
+RES_STEPS = 7  # the rollback (steps 1-3 poisoned) and 2 measured steps
+RES_CHAOS = "train/loss:nan@3"  # the JAX package's rollback test's spec
+RES_MFU_RTOL = 0.01
+
+
+def resilience_cli(work: Path, data: Path) -> dict:
+    """cli.train in a child process at base.toml whole with every flag of
+    the slice on and PROGEN_CHAOS=RES_CHAOS (no tracker: the card's
+    machine has wandb installed and no login); its output, exposition and
+    profile directory."""
+    ck, prof, prom = work / "ckpts", work / "profile", work / "train.prom"
+    args = [sys.executable, "-m", "progen_tpu_torch.cli.train",
+            "--device", "cuda", "--mixed_precision", "--wandb_off",
+            "--config_path", str(REPO / "configs" / "model"),
+            "--model_name", "base", "--data_path", str(data),
+            "--checkpoint_path", str(ck), "--batch_size", str(TRAIN_MICRO),
+            "--grad_accum_every", str(TRAIN_ACCUM), "--checkpoint_every",
+            "3", "--validate_every", "1000", "--sample_every", "1000",
+            "--checkpoint_keep_n", "2", "--num_steps", str(RES_STEPS),
+            "--seed", str(CLI_SEED), "--async_checkpoint",
+            "--prom_file", str(prom), "--profile_dir", str(prof),
+            "--stall_timeout", "300", "--stall_escalate_after", "2",
+            "--anomaly_patience", "3"]
+    t = time.perf_counter()
+    res = subprocess.run(args, cwd=work, capture_output=True, text=True,
+                         timeout=600, env=dict(os.environ,
+                                               PYTHONPATH=str(REPO),
+                                               PROGEN_CHAOS=RES_CHAOS))
+    seconds = time.perf_counter() - t
+    text = prom.read_text() if prom.exists() else ""
+    samples = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"^([a-zA-Z_:][a-zA-Z0-9_:]*(?:\{[^}]*\})?) (\S+)(?: #.*)?$", text,
+        re.M)}
+    return dict(rc=res.returncode, stdout=res.stdout, stderr=res.stderr,
+                seconds=seconds, prom=samples,
+                traces=sorted(prof.glob("*.json")) if prof.is_dir() else [],
+                ckpt=ck)
+
+
+def check_resilience_cli(cfg, run: dict) -> tuple:
+    """The child run's checks (Part 2 of the slice); (bad, summary)."""
+    from progen_tpu_torch.checkpoint import get_checkpoint_fns
+    from progen_tpu_torch.profiling import flops_per_token
+
+    bad, prom, out = [], run["prom"], run["stdout"]
+    if run["rc"] != 0:
+        bad.append(f"cli.train exited {run['rc']}: {run['stderr'][-2000:]}")
+    rollbacks = re.findall(
+        r"^\[\S+ step (\d+)\] anomaly rollback (\d+)/3: restored checkpoint "
+        r"\(state step (\d+)\), data skipped ahead to sequence (\d+)", out,
+        re.M)
+    if [r[1] for r in rollbacks] != ["1"]:
+        bad.append(f"rollbacks logged: {rollbacks} (want one, "
+                   "'anomaly rollback 1/3')")
+    goodput = {k[len("progen_train_"):]: v for k, v in prom.items()
+               if k.startswith("progen_train_bucket_s_")
+               or k in ("progen_train_wall_s", "progen_train_goodput_pct",
+                        "progen_train_coverage_pct")}
+    share = (100.0 * sum(v for k, v in goodput.items()
+                         if k.startswith("bucket_s_"))
+             / goodput["wall_s"]) if "wall_s" in goodput else 0.0
+    if not abs(share - 100.0) <= 0.5:
+        bad.append(f"goodput buckets sum to {share}% of the wall clock")
+    for name in ("progen_train_goodput_pct", "progen_train_mfu",
+                 "progen_train_hbm_in_use_gb"):
+        if name not in prom:
+            bad.append(f"the exposition lacks {name}")
+    if not prom.get("progen_train_anomaly_rollbacks_total", 0) > 0:
+        bad.append("the exposition's anomaly_rollbacks_total is not > 0")
+    fpt = flops_per_token(cfg)
+    tps = prom.get("progen_train_tokens_per_sec_per_chip", 0.0)
+    mfu = prom.get("progen_train_mfu", -1.0)
+    want = tps * fpt / PEAK_OPS[torch.bfloat16]
+    if not (0 < mfu <= 1 and abs(mfu - want) <= RES_MFU_RTOL * want):
+        bad.append(f"mfu {mfu}, recomputed from {tps} tokens/s {want}")
+    trace_bytes = 0
+    if run["traces"]:
+        text = run["traces"][-1].read_text()
+        trace_bytes = len(text)
+        for name in ("fwd_tc_kernel", '"train/step"'):
+            if name not in text:
+                bad.append(f"the profile trace does not name {name}")
+        del text
+    else:
+        bad.append("no profile trace")
+    # the final checkpoint: restored (its manifest verified), its cursor
+    # the rollback's plus one effective batch per step trained after it
+    losses = {int(st): float(v) for st, v in re.findall(
+        r"^\[\S+ step (\d+)\] loss: (\S+)$", out, re.M)}
+    t = time.perf_counter()
+    pkg = get_checkpoint_fns(str(run["ckpt"]))[1](device="cpu")
+    restore_s = time.perf_counter() - t
+    if pkg is None:
+        bad.append("no final checkpoint restores")
+    elif rollbacks:
+        step_at, _, restored, cursor = map(int, rollbacks[0])
+        after = sum(st > step_at for st in losses)
+        want_ck = (cursor + TRAIN_ACCUM * TRAIN_MICRO * after,
+                   restored + after)
+        got = (pkg.next_seq_index, pkg.state["step"])
+        if got != want_ck:
+            bad.append(f"the final checkpoint {pkg.path}: (cursor, step) "
+                       f"{got}, not {want_ck}")
+    profile_s = [float(x) for x in re.findall(
+        r"^profile: .* \(([0-9.]+) s\)$", out, re.M)]
+    summary = dict(
+        seconds=run["seconds"], goodput=goodput, goodput_sum_pct=share,
+        tokens_per_sec_per_chip=tps, mfu=mfu,
+        step_ms_p50=1e3 * prom.get('progen_train_step_seconds{quantile='
+                                   '"0.5"}', float("nan")),
+        hbm={k: v for k, v in prom.items() if "_hbm_" in k},
+        counters={k: v for k, v in prom.items() if k.endswith("_total")},
+        losses=losses, rollback=rollbacks[0] if rollbacks else None,
+        profile_s=profile_s[0] if profile_s else None,
+        trace_bytes=trace_bytes, final_checkpoint=pkg and pkg.path,
+        final_restore_s=restore_s, flops_per_token=fpt)
+    del pkg
+    return bad, summary
+
+
+def async_against_blocking(cfg, work: Path) -> dict:
+    """In this process, at base: a blocking save of a state, then an
+    asynchronous save of it, one train step on it (which updates its
+    tensors in place, launches counted), then the asynchronous save
+    finalized: its files must hash as the blocking save's. The seconds
+    the train loop loses to each."""
+    from progen_tpu_torch.checkpoint import Package, get_checkpoint_fns
+    from progen_tpu_torch.training.step import (
+        init_train_state,
+        make_train_step,
+    )
+
+    state = init_train_state(cfg, device="cuda", seed=0)
+    step = make_train_step()
+    batch = train_batch(cfg)
+    step(state, batch)  # moments that are not all zero
+    torch.cuda.synchronize()
+    _, _, blocking = get_checkpoint_fns(str(work / "blocking"))
+    _, _, background = get_checkpoint_fns(str(work / "async"),
+                                          async_save=True)
+
+    def package():
+        return Package(next_seq_index=16, state=state,
+                       model_config=cfg.to_dict(), run_id="r",
+                       train_config=None)
+
+    t = time.perf_counter()
+    b_path = Path(blocking(package()))
+    out = {"blocking_s": time.perf_counter() - t}
+    t = time.perf_counter()
+    a_path = Path(background(package()))
+    # the loop's loss: the copy to host buffers (their first allocation
+    # included; the child's later saves reuse theirs)
+    out["async_s"] = time.perf_counter() - t
+    reset_counts()
+    t = time.perf_counter()
+    step(state, batch)
+    torch.cuda.synchronize()
+    out["step_during_write_ms"] = (time.perf_counter() - t) * 1e3
+    out["launches"] = launch_counts()
+    t = time.perf_counter()
+    background.flush()
+    out["finalize_wait_s"] = time.perf_counter() - t
+    # each meta.json's manifest holds its files' sizes and sha256, taken
+    # from the bytes on disk by the save (the restore walk verifies them)
+    b_man, a_man = (json.loads((p / "meta.json").read_text())["integrity"]
+                    for p in (b_path, a_path))
+    out["files"] = {f: (b_man[f][1], a_man[f][1]) for f in b_man}
+    out["bytes"] = sum(size for size, _ in b_man.values())
+    out["bit_equal"] = b_man == a_man
+    del state, blocking, background
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_resilience(cfg, card: str, result: dict) -> dict:
+    """Phase 12 (see the module docstring)."""
+    import shutil
+
+    from progen_tpu_torch.cli import generate_data
+    from progen_tpu_torch.telemetry import hbm_gauges
+
+    t_phase = time.perf_counter()
+    work = REPO / "build" / "chip_smoke_resilience"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "data_cfg").mkdir(parents=True)
+    bad, parts = [], {}
+    try:
+        t = time.perf_counter()
+        fasta, data = work / "uniref50_synthetic.fasta", work / "data"
+        write_fasta(fasta, CLI_SEED)
+        (work / "data_cfg" / "synthetic.toml").write_text(DATA_TOML.format(
+            fasta=fasta, out=data, n=CLI_SEQS))
+        generate_data.run(["--data_dir", str(work / "data_cfg"), "--name",
+                           "synthetic", "--seed", str(CLI_SEED)])
+        parts["etl"] = time.perf_counter() - t
+        run = resilience_cli(work, data)
+        parts["cli"] = run["seconds"]
+        cli_bad, cli = check_resilience_cli(cfg, run)
+        bad += cli_bad
+        t = time.perf_counter()
+        gauges = hbm_gauges()
+        if not gauges:
+            bad.append("hbm_gauges() is empty on the card")
+        saves = async_against_blocking(cfg, work)
+        parts["saves"] = time.perf_counter() - t
+        if not saves["bit_equal"]:
+            bad.append(f"the asynchronous save's files differ from the "
+                       f"blocking save's: {saves['files']}")
+        if saves["launches"] != per_step(cfg):
+            bad.append(f"the step during the write launched "
+                       f"{saves['launches']}, not {per_step(cfg)}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out = dict(
+        card=card, config="configs/model/base.toml",
+        num_params=cfg.num_params(), chaos=RES_CHAOS, steps=RES_STEPS,
+        batch=[TRAIN_ACCUM, TRAIN_MICRO, cfg.seq_len + 1],
+        cli_step_ms_p50=cli["step_ms_p50"],
+        cli_tokens_per_sec=cli["tokens_per_sec_per_chip"],
+        cli_mfu=cli["mfu"], counters=cli["counters"],
+        library_step_ms=result["train"]["step_ms"],
+        library_tokens_per_s=result["train"]["tokens_per_s"],
+        cli_depth6_step_ms=result["cli"]["step_ms"],
+        cli_depth6_tokens_per_s=result["cli"]["tokens_per_s"],
+        goodput=cli["goodput"], goodput_sum_pct=cli["goodput_sum_pct"],
+        rollback=cli["rollback"], losses=cli["losses"], hbm=cli["hbm"],
+        hbm_gauges_parent=gauges,
+        profile_s=cli["profile_s"], trace_bytes=cli["trace_bytes"],
+        checkpoint_bytes=saves["bytes"],
+        blocking_save_s=saves["blocking_s"], async_save_s=saves["async_s"],
+        async_finalize_wait_s=saves["finalize_wait_s"],
+        step_during_write_ms=saves["step_during_write_ms"],
+        async_bit_equal=saves["bit_equal"],
+        final_restore_s=cli["final_restore_s"],
+        parts_s=parts, seconds=time.perf_counter() - t_phase, budget_s=180)
+    line("resilience", **out)
+    if bad:
+        raise AssertionError("resilience: " + "; ".join(bad))
+    return dict(out, launches=saves["launches"])
 
 
 def check_training(run: dict) -> None:
@@ -3679,9 +4021,12 @@ def main() -> int:
     result["seqpar"] = phase_seqpar(cfg8k, card)
     result["cli"] = phase_cli(cfg, train)
     result["serve"] = phase_serve(
-        cfg, 2 * result["generate"]["plain_vs_f32"] + 1e-3, card)
-    result["workloads"] = phase_workloads(cfg, result["score"], card)
+        dataclasses.replace(cfg, depth=SERVE_DEPTH),
+        2 * result["generate"]["plain_vs_f32"] + 1e-3, card)
+    result["workloads"] = phase_workloads(
+        dataclasses.replace(cfg, depth=WL_DEPTH), result["score"], card)
     result["grid"] = phase_grid(cfg, card, build["tensor_core_kernels"])
+    result["resilience"] = phase_resilience(cfg, card, result)
 
     # each kernel's launches, summed over the paths driven with counts:
     # scoring + generation, the 3 train steps, the A3 step, the seqpar
@@ -3697,7 +4042,8 @@ def main() -> int:
                  cli=result["cli"]["launches"],
                  serve=result["serve"]["launches"],
                  workloads=result["workloads"]["launches"],
-                 grid=result["grid"]["launches"])
+                 grid=result["grid"]["launches"],
+                 resilience=result["resilience"]["launches"])
     counts = {k: sum(c[k] for c in paths.values()) for k in run["launches"]}
     line("launches", **paths, total=counts)
     if not all(counts.values()):

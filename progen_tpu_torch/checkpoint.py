@@ -35,8 +35,29 @@ walks, verifies and quarantines, and tells the other ranks its choice;
 every rank then reads the whole checkpoint into host memory and keeps
 its part. The ranks share the checkpoint's file system.
 
-Not ported: asynchronous saves, ``gs://`` paths, and the telemetry, retry
-and fault-injection seams of the JAX module. One process writes.
+The seams of the JAX module: spans ``ckpt/save``, ``ckpt/restore`` and
+``ckpt/finalize`` (a chaos rule on a span fires at its entry); the file
+work under ``retry_call`` with the labels ``ckpt/io/save`` (the array
+files), ``ckpt/io/meta_write``, ``ckpt/io/meta_read`` and
+``ckpt/io/restore``, on the writing or reading process only, never
+around a collective; and the registry's ``ckpt_quarantines`` and
+``ckpt_commit_failures`` counters with their events.
+
+Every save writes host tensors: the arrays are copied off the card
+first, so a checkpoint's bytes do not depend on the device it came from.
+``async_save=True`` overlaps the write with training. The optimizer
+updates the state's tensors in place, so ``save`` first copies them into
+host buffers (reused from one save to the next; pinned on a card), and
+that copy is complete when ``save`` returns; a background thread then
+runs ``torch.save``, the digests and the manifest, and the ``meta.json``
+write and the rename last. ``save.check_error()``, polled every step,
+raises a failed background write at the next step (never swallowed);
+the in-flight save is finalized (``save.flush()``) before the next save,
+before any restore and at exit (``save.close()``). On a grid the gather
+stays collective and synchronous; only the coordinator's write goes to
+the thread.
+
+Not ported: ``gs://`` paths (the card's machine has no TensorStore).
 """
 
 from __future__ import annotations
@@ -46,6 +67,7 @@ import json
 import os
 import re
 import shutil
+import threading
 import time
 from pathlib import Path
 from typing import Any, Callable, NamedTuple, Optional, Tuple
@@ -53,8 +75,11 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from progen_tpu_torch import telemetry
 from progen_tpu_torch.data.dataset import reject_gcs
 from progen_tpu_torch.parallel.groups import is_coordinator
+from progen_tpu_torch.resilience.retry import retry_call
+from progen_tpu_torch.telemetry.registry import get_registry
 
 CKPT_PREFIX = "ckpt_"
 CORRUPT_SUFFIX = ".corrupt"
@@ -118,6 +143,60 @@ def train_state_payload(state) -> Tuple[dict, dict]:
     return params, {**opt, "step": int(state.step)}
 
 
+def host_payload(payload: Tuple[dict, dict],
+                 buffers: Optional[dict] = None) -> Tuple[dict, dict]:
+    """(params, opt) with every tensor on the host. Without ``buffers``, a
+    tensor already on the host is kept as it is (a blocking save writes
+    it at once); with ``buffers`` (a dict this function fills and reuses,
+    keyed by the tensor's place in the payload), every tensor is copied
+    into its own host buffer, pinned for a card's tensors, and the
+    copies are complete on return: a snapshot the caller may go on
+    mutating the state after."""
+    copies = []
+
+    def host(key: str, t: torch.Tensor) -> torch.Tensor:
+        if buffers is None:
+            return t.cpu()
+        buf = buffers.get(key)
+        if buf is None or buf.shape != t.shape or buf.dtype != t.dtype \
+                or buf.stride() != t.stride():
+            pin = t.device.type == "cuda"
+            buf = buffers[key] = torch.empty_like(t, device="cpu",
+                                                  pin_memory=pin)
+        buf.copy_(t, non_blocking=t.device.type == "cuda")
+        copies.append(t.device)
+        return buf
+
+    params, opt = payload
+    params = {k: host(f"params/{k}", v) for k, v in params.items()}
+    opt = {k: ({n: host(f"{k}/{n}", t) for n, t in v.items()}
+               if isinstance(v, dict) else v) for k, v in opt.items()}
+    for dev in {d for d in copies if d.type == "cuda"}:
+        torch.cuda.synchronize(dev)
+    return params, opt
+
+
+class _Writer:
+    """The background write of one asynchronous save: ``fn()`` on a
+    daemon thread; ``error`` holds what it raised."""
+
+    def __init__(self, fn: Callable[[], Any]):
+        self.error: Optional[BaseException] = None
+        self._fn = fn
+        self._thread = threading.Thread(target=self._run,
+                                        name="ckpt-writer", daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        try:
+            self._fn()
+        except BaseException as e:  # surfaced by check_error / join
+            self.error = e
+
+    def join(self) -> None:
+        self._thread.join()
+
+
 def load_train_state(state, payload: dict) -> None:
     """Copy a restored (whole) payload into ``state`` (parameters,
     moments, count, step), in place; a model on a grid keeps its part
@@ -148,11 +227,16 @@ def gather_train_state(state) -> Optional[Tuple[dict, dict]]:
 
 
 def get_checkpoint_fns(
-    path: str, keep_last_n: int = DEFAULT_KEEP_LAST_N, grid=None
+    path: str, keep_last_n: int = DEFAULT_KEEP_LAST_N, grid=None,
+    async_save: bool = False,
 ) -> Tuple[Callable, Callable, Callable]:
     """(reset, get_last, save) over the local directory ``path``.
 
-    save(package) -> str: the new checkpoint's directory.
+    save(package) -> str: the new checkpoint's directory (with
+        ``async_save``, published once its background write finishes).
+    save.flush(): finalize the in-flight asynchronous save (wait for its
+        write; raise what it raised). save.close(): the same, at exit.
+    save.check_error(): non-blocking; raise a failed background write.
     get_last(state=None, *, device="cpu") -> Optional[Package]: the newest
         checkpoint that verifies, loaded into ``state`` (a TrainState) or
         returned as a dict on ``device``.
@@ -200,30 +284,95 @@ def get_checkpoint_fns(
         def rm():
             if root.exists():
                 shutil.rmtree(root)
+        _finalize_pending()
         _shared(rm)
 
-    def save(package: Package) -> str:
-        if ranks:
-            payload = gather_train_state(package.state)
-            return _shared(lambda: _write(package, payload))
-        return _write(package, train_state_payload(package.state))
+    # the asynchronous machinery: "writer" (the in-flight _Writer) and
+    # "buffers" (the host snapshot's buffers, reused from save to save)
+    _async: dict = {"buffers": {}}
 
-    def _write(package: Package, payload: Tuple[dict, dict]) -> str:
+    def _finalize_pending() -> None:
+        """Wait for the in-flight background write; raise what it raised
+        (its checkpoint stays unpublished: no meta.json, no rename)."""
+        writer = _async.get("writer")
+        if writer is None:
+            return  # nothing in flight: span-free no-op
+        with telemetry.span("ckpt/finalize"):
+            writer.join()
+            _async.pop("writer", None)
+            if writer.error is not None:
+                _commit_failed(writer.error)
+                raise writer.error
+
+    def _commit_failed(e: BaseException) -> None:
+        get_registry().inc("ckpt_commit_failures")
+        telemetry.get_telemetry().emit({
+            "ev": "ckpt_commit_failed", "ts": time.time(),
+            "error": f"{type(e).__name__}: {e}"})
+
+    def _check_error() -> None:
+        """Non-blocking poll of the background write, once a step: a
+        failed write raises at the next step, with a
+        ``ckpt_commit_failed`` event, rather than at the next save."""
+        writer = _async.get("writer")
+        if writer is None or writer.error is None:
+            return
+        _async.pop("writer", None)
+        _commit_failed(writer.error)
+        raise writer.error
+
+    def save(package: Package) -> str:
+        # a B with no E in events.jsonl: the process died mid-save
+        with telemetry.span("ckpt/save", async_mode=async_save):
+            return _save(package)
+
+    def _save(package: Package) -> str:
+        _finalize_pending()
+        if ranks:
+            payload = gather_train_state(package.state)  # on the host
+        else:
+            payload = train_state_payload(package.state)
+            payload = host_payload(
+                payload, _async["buffers"] if async_save else None)
+        if async_save:
+            return _shared(lambda: _start(package, payload))
+        return _shared(lambda: _write(package, payload)) if ranks \
+            else _write(package, payload)
+
+    def _target() -> Path:
         # unix-time names made collision-proof: two saves in one second
         # get increasing names, so lexicographic order is save order
         stamp = int(time.time())
         existing = _list()
         if existing:
             stamp = max(stamp, int(existing[-1].name[len(CKPT_PREFIX):]) + 1)
-        target = root / f"{CKPT_PREFIX}{stamp}"
+        return root / f"{CKPT_PREFIX}{stamp}"
+
+    def _start(package: Package, payload) -> str:
+        """The coordinator's asynchronous write: the name is taken now, so
+        names stay in save order; the files are written by the thread."""
+        target = _target()
+        _async["writer"] = _Writer(lambda: _write(package, payload, target))
+        return str(target)
+
+    def _write(package: Package, payload: Tuple[dict, dict],
+               target: Optional[Path] = None) -> str:
+        target = target or _target()
         root.mkdir(parents=True, exist_ok=True)
         for stale in root.glob(f"{CKPT_PREFIX}*{TMP_SUFFIX}"):
             shutil.rmtree(stale)  # a save that died before its rename
         tmp = target.with_name(target.name + TMP_SUFFIX)
-        tmp.mkdir()
         params, opt = payload
-        torch.save(params, tmp / PARAMS_FILE)
-        torch.save(opt, tmp / OPT_FILE)
+
+        def commit():
+            # a failed attempt may leave a partial directory: start over
+            if tmp.exists():
+                shutil.rmtree(tmp)
+            tmp.mkdir()
+            torch.save(params, tmp / PARAMS_FILE)
+            torch.save(opt, tmp / OPT_FILE)
+
+        retry_call(commit, label="ckpt/io/save")
         meta = {
             "next_seq_index": int(package.next_seq_index),
             "model_config": package.model_config,
@@ -231,18 +380,28 @@ def get_checkpoint_fns(
             "train_config": package.train_config,
             "integrity": digest_manifest(tmp, (PARAMS_FILE, OPT_FILE)),
         }
-        (tmp / META_FILE).write_text(json.dumps(meta))
+        retry_call((tmp / META_FILE).write_text, json.dumps(meta),
+                   label="ckpt/io/meta_write")
         tmp.rename(target)
         if keep_last_n:
             for p in _complete(_list())[:-keep_last_n]:
                 shutil.rmtree(p)
         return str(target)
 
+    save.flush = _finalize_pending
+    save.close = _finalize_pending  # at exit; safe to call again
+    save.check_error = _check_error
+    save._async = _async  # test seam: a writer may be injected
+
     def _quarantine(p: Path, reason: str) -> None:
         """Rename a bad checkpoint ``<name>.corrupt``: out of the rotation,
         kept on disk. A failed rename means the next walk reaches the same
         verdict."""
         print(f"[checkpoint] quarantining {p.name}: {reason}", flush=True)
+        get_registry().inc("ckpt_quarantines")
+        telemetry.get_telemetry().emit({"ev": "ckpt_quarantine",
+                                        "ts": time.time(), "ckpt": p.name,
+                                        "reason": reason})
         try:
             p.rename(p.with_name(p.name + CORRUPT_SUFFIX))
         except OSError:
@@ -262,7 +421,8 @@ def get_checkpoint_fns(
                 "(import_jax_checkpoint) before progen_tpu_torch reads it"
             )
         try:
-            meta = json.loads((cand / META_FILE).read_text())
+            meta = json.loads(retry_call((cand / META_FILE).read_text,
+                                         label="ckpt/io/meta_read"))
         except (OSError, ValueError):
             _quarantine(cand, f"unreadable {META_FILE}")
             return None
@@ -274,6 +434,7 @@ def get_checkpoint_fns(
         return cand, meta
 
     def _select(at=None) -> Optional[tuple]:
+        _finalize_pending()  # the walk must see the newest checkpoint
         return _shared(lambda: _select_here(at))
 
     def _select_here(at=None) -> Optional[tuple]:
@@ -297,9 +458,14 @@ def get_checkpoint_fns(
                        train_config=meta.get("train_config"), path=str(ckpt))
 
     def _load(p: Path, device):
-        return torch.load(p, weights_only=True, map_location=device)
+        return retry_call(torch.load, p, weights_only=True,
+                          map_location=device, label="ckpt/io/restore")
 
     def get_last(state=None, *, device="cpu") -> Optional[Package]:
+        with telemetry.span("ckpt/restore"):
+            return _get_last(state, device)
+
+    def _get_last(state, device) -> Optional[Package]:
         sel = _select()
         if sel is None:
             return None

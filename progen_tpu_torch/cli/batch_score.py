@@ -11,8 +11,8 @@ lost work. The summary is printed as one JSON line. The journal's
 records also go to ``runs/progen-batch-score/<id>/events.jsonl`` under
 the working directory. ``PROGEN_CHAOS`` arms the fault-injection sites
 (``score/batch:kill@N`` kills the process after its Nth durable batch).
-``--prom_file`` and ``--metrics-every`` are not ported yet and are
-refused with the ROADMAP item that carries them.
+``--prom_file`` writes the scorer's Prometheus exposition (prefix
+``progen_score_``), every ``--metrics-every`` batches and at the end.
 
 Run: python -m progen_tpu_torch.cli.batch_score --checkpoint_path ./ckpts \\
          --input candidates.fasta --out_dir ./scores
@@ -27,16 +27,13 @@ import os
 from progen_tpu_torch._device import resolve_device
 from progen_tpu_torch.cli.eval import load_model
 from progen_tpu_torch.resilience.chaos import install_from_env
-from progen_tpu_torch.telemetry import spans
+from progen_tpu_torch.telemetry import MetricsRegistry, spans
 from progen_tpu_torch.tracking import JsonlTracker
 from progen_tpu_torch.workloads.scoring import (
     fasta_records,
     run_batch_score,
     tfrecord_records,
 )
-
-_ITEM_6 = "ROADMAP queue 1 item 6 (the host-side stack)"
-NOT_PORTED = {"--prom_file": _ITEM_6, "--metrics-every": _ITEM_6}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -68,15 +65,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max_batches", default=None, type=int,
                    help="stop after N scored batches (a deterministic "
                         "partial run)")
+    p.add_argument("--prom_file", default=None,
+                   help="write Prometheus text exposition of the scoring "
+                        "metrics here (atomic; on the --metrics-every "
+                        "cadence and at the end)")
+    p.add_argument("--metrics-every", dest="metrics_every", default=0,
+                   type=int,
+                   help="rewrite --prom_file every N batches (0 = at end "
+                        "only)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    for flag in NOT_PORTED:
-        p.add_argument(flag, nargs="?", const=True, default=None,
-                       help=argparse.SUPPRESS)
-    args = p.parse_args(argv)
-    for flag, item in NOT_PORTED.items():
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            p.error(f"{flag} is not ported yet: {item}")
-    return args
+    return p.parse_args(argv)
 
 
 def run(argv=None) -> dict:
@@ -98,7 +96,9 @@ def run(argv=None) -> dict:
         summary = run_batch_score(
             model, records, args.out_dir, batch_size=args.batch_size,
             logprobs=args.logprobs, shard_size=args.shard_size,
-            resume=args.resume, max_batches=args.max_batches)
+            resume=args.resume, metrics=MetricsRegistry(),
+            prom_file=args.prom_file, metrics_every=args.metrics_every,
+            max_batches=args.max_batches)
     finally:
         spans.configure()  # detach before the sink closes
         events.close()

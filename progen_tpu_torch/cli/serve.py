@@ -42,9 +42,12 @@ uninterrupted stream (a slot's draw t is ``draw_seed(seed, t)``, so the
 journal carries a draw offset, not a key). ``--int8`` serves int8
 weight-quantised matrix products and prints the calibration line
 "int8 weights: ..." to stderr. ``PROGEN_CHAOS`` arms the fault sites
-(``serve/prefill``, ``serve/prefill_chunk``, ``serve/decode``). The flags
-of the JAX CLI that are not ported yet are refused with the ROADMAP item
-that carries them.
+(``serve/prefill``, ``serve/prefill_chunk``, ``serve/decode``).
+``--prom_file`` writes the metrics' Prometheus exposition (prefix
+``progen_serve_``; on the ``--metrics-every`` cadence and at exit, and at
+least every ``--heartbeat`` seconds when set), ``--prom_port`` serves it
+over HTTP on localhost. The flags of the JAX CLI that are not ported yet
+are refused with the ROADMAP item that carries them.
 
 Run: python -m progen_tpu_torch.cli.serve --checkpoint_path ./ckpts
 """
@@ -73,20 +76,26 @@ from progen_tpu_torch.serving import (
     ServeEngine,
     replay_into,
 )
-from progen_tpu_torch.telemetry import spans
+from progen_tpu_torch.telemetry import (
+    prometheus_text,
+    spans,
+    start_prometheus_server,
+    write_prometheus,
+)
 from progen_tpu_torch.tracking import JsonlTracker
 from progen_tpu_torch.workloads.infill import (
     infill_request_arrays,
     parse_template,
 )
 
-_ITEM_6 = "ROADMAP queue 1 item 6 (the host-side stack)"
+_ITEM_2 = "ROADMAP queue 1 item 2 (the serving fleet's data plane)"
+_ITEM_3 = "ROADMAP queue 1 item 3 (the telemetry back end and the flight " \
+    "recorder)"
 NOT_PORTED = {
-    "--socket": _ITEM_6, "--tcp": _ITEM_6, "--idle_timeout": _ITEM_6,
-    "--prom_file": _ITEM_6, "--prom_port": _ITEM_6, "--heartbeat": _ITEM_6,
-    "--reload_watch": _ITEM_6, "--reload_pin": _ITEM_6,
-    "--flight_dir": _ITEM_6, "--profile_pin": _ITEM_6,
-    "--profile_out": _ITEM_6,
+    "--socket": _ITEM_2, "--tcp": _ITEM_2, "--idle_timeout": _ITEM_2,
+    "--reload_watch": _ITEM_2, "--reload_pin": _ITEM_2,
+    "--flight_dir": _ITEM_3, "--profile_pin": _ITEM_3,
+    "--profile_out": _ITEM_3,
 }
 
 
@@ -134,8 +143,23 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "request of DIR/journal.jsonl")
     p.add_argument("--metrics-every", dest="metrics_every", default=0,
                    type=int,
-                   help="log a serve/ metrics snapshot to the tracker every "
-                        "N decode steps (0 = only at exit)")
+                   help="log a serve/ metrics snapshot to the tracker (and "
+                        "rewrite --prom_file) every N decode steps (0 = "
+                        "only at exit)")
+    p.add_argument("--prom_file", default=None,
+                   help="write Prometheus text exposition here (atomic "
+                        "rewrite on the --metrics-every cadence and at "
+                        "exit; node-exporter textfile-collector "
+                        "compatible)")
+    p.add_argument("--prom_port", default=0, type=int,
+                   help="serve Prometheus text exposition over HTTP on "
+                        "this localhost port (0 = off)")
+    p.add_argument("--heartbeat", default=0.0, type=float,
+                   help="rewrite --prom_file at least every N seconds even "
+                        "when idle (0 = only on the --metrics-every "
+                        "cadence). A collector reading the exposition's "
+                        "mtime as liveness sees an idle but healthy "
+                        "server as alive")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     for flag in NOT_PORTED:
         p.add_argument(flag, nargs="?", const=True, default=None,
@@ -269,11 +293,13 @@ def _replay(sched, replay_dir: str, starts: dict) -> list:
 
 
 def serve_stdio(sched, defaults: dict, starts: dict, shutdown: dict,
-                publish, metrics_every: int, preamble=()) -> None:
+                publish, metrics_every: int, preamble=(),
+                tick=None) -> None:
     """The stdin/stdout loop: read the lines waiting on stdin between
     decode steps, so requests join mid-flight; EOF stops intake and the
     loop drains what is left. A drain signal stops intake and sheds the
-    queue; the slots run to completion."""
+    queue; the slots run to completion. ``tick`` runs once per loop
+    iteration (the exposition's heartbeat)."""
     out = sys.stdout
 
     def emit(lines):
@@ -286,6 +312,8 @@ def serve_stdio(sched, defaults: dict, starts: dict, shutdown: dict,
     steps = 0
     buf = ""  # what came off the pipe after the last newline
     while (not eof and not shutdown["flag"]) or sched.has_work:
+        if tick is not None:
+            tick()
         if shutdown["flag"] and not drained:
             drained = True
             sched.drain_queue()
@@ -366,8 +394,28 @@ def run(argv=None) -> dict:
     spans.configure(sink=events.emit)
     print(f"request traces: {events.path}", file=sys.stderr)
 
+    beat = {"last": time.monotonic()}
+
     def publish(step=None):
         sched.metrics.log_to(tracker, step=step)
+        if args.prom_file:
+            write_prometheus(args.prom_file, prometheus_text(sched.metrics))
+            beat["last"] = time.monotonic()
+
+    def tick():
+        # an exposition rewrite only (no tracker row): the file's mtime
+        # stays fresh for a collector while the server idles
+        if args.heartbeat and args.prom_file and \
+                time.monotonic() - beat["last"] >= args.heartbeat:
+            write_prometheus(args.prom_file, prometheus_text(sched.metrics))
+            beat["last"] = time.monotonic()
+
+    prom_srv = None
+    if args.prom_port:
+        prom_srv = start_prometheus_server(
+            lambda: prometheus_text(sched.metrics), port=args.prom_port)
+        print(f"prometheus on http://127.0.0.1:"
+              f"{prom_srv.server_address[1]}/metrics", file=sys.stderr)
 
     starts: dict = {}
     preamble = _replay(sched, args.replay_dir, starts) \
@@ -394,11 +442,13 @@ def run(argv=None) -> dict:
     t0 = time.perf_counter()
     try:
         serve_stdio(sched, defaults, starts, shutdown, publish,
-                    args.metrics_every, preamble)
+                    args.metrics_every, preamble, tick=tick)
     finally:
         for s, handler in old.items():
             signal.signal(s, handler)
         publish()
+        if prom_srv is not None:
+            prom_srv.shutdown()
         spans.configure()
         events.close()
         tracker.finish()

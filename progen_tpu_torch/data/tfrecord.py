@@ -198,12 +198,21 @@ def tfrecord_writer(path: str, key: str = "seq"):
         yield write
 
 
+def _read_file_bytes(path: str) -> bytes:
+    with gzip.open(path, "rb") as fp:
+        return fp.read()
+
+
 def read_tfrecords(path: str, key: str = "seq") -> Iterator[bytes]:
     """Yield the ``key`` feature of every Example in a gzip TFRecord file.
-    The file is decompressed whole, then parsed in one native call when
-    the engine is available, else by the Python codec."""
-    with gzip.open(path, "rb") as fp:
-        data = fp.read()
+    The file is decompressed whole under the retry policy (label
+    ``data/read``: a transient file-system fault is retried with backoff,
+    and a retry starts again from byte 0, so no record is yielded twice),
+    then parsed in one native call when the engine is available, else by
+    the Python codec."""
+    from progen_tpu_torch.resilience.retry import retry_call
+
+    data = retry_call(_read_file_bytes, path, label="data/read")
     if _native.load() is not None:
         yield from _native.parse_file(data, key.encode())
         return

@@ -17,8 +17,20 @@ site. Specs:
                    1e9 instead of x;
   * ``nan@N``    — the same, returning NaN.
 
-The port's sites (``KNOWN_TARGETS``):
+The port's sites (``KNOWN_TARGETS``), named as the JAX package's:
 
+  * ``ckpt/save``, ``ckpt/restore``, ``ckpt/finalize`` — span entries of
+                              a checkpoint save, a restore, and the
+                              finalize of an asynchronous save;
+  * ``ckpt/io/{save,meta_write,meta_read,restore}`` — each attempt of
+                              the checkpoint's file work inside
+                              ``retry_call`` (``resilience/retry.py``);
+  * ``data/read``           — each attempt of a TFRecord file's read;
+  * ``train/{ckpt,eval,sample,rollback}`` — span entries of the train
+                              loop's cadence work and its anomaly
+                              rollback;
+  * ``train/loss``          — the perturb site (``spike@N``/``nan@N``):
+                              the loss the sentinel sees;
   * ``score/batch``         — after each durable batch of the batch
                               scorer (``workloads/scoring.py``): its
                               shard lines are flushed and fsynced first,
@@ -33,8 +45,12 @@ The port's sites (``KNOWN_TARGETS``):
                               N-1 full steps);
   * ``serve/embed``         — span entry of an embedding request.
 
-With ``PROGEN_CHAOS`` unset every hook is a no-op. A rule whose target
-is no site warns once at install instead of never firing silently.
+The JAX package's ``data/glob`` guards a ``gs://`` glob, which the port
+refuses (``data/dataset.py``), and its ``train/compile`` a compile the
+port does not make: neither has a site here. With ``PROGEN_CHAOS``
+unset every hook is a no-op. A rule whose target is no site warns once
+at install instead of never firing silently. Every injection counts
+into the registry's ``chaos_injections``.
 """
 
 from __future__ import annotations
@@ -50,10 +66,20 @@ from typing import Dict, Optional
 
 from progen_tpu_torch.resilience.retry import TransientError
 from progen_tpu_torch.telemetry import spans
+from progen_tpu_torch.telemetry.registry import get_registry
 
+# the JAX package's data/glob (a gs:// glob, refused here) and
+# train/compile (no compile per shape here) have no counterpart
 KNOWN_TARGETS = frozenset({
     # spans
+    "ckpt/finalize", "ckpt/restore", "ckpt/save",
     "serve/embed", "serve/prefill", "serve/prefill_chunk",
+    "train/ckpt", "train/eval", "train/rollback", "train/sample",
+    # retry-site labels (resilience/retry.py)
+    "ckpt/io/meta_read", "ckpt/io/meta_write", "ckpt/io/restore",
+    "ckpt/io/save", "data/read",
+    # perturb sites
+    "train/loss",
     # direct maybe_inject sites
     "score/batch", "serve/decode",
 })
@@ -100,11 +126,17 @@ def _parse(spec: str) -> Dict[str, _Rule]:
 
 
 def _record_injection(name: str, rule: _Rule) -> None:
-    """Every injection leaves a ``chaos`` event on the telemetry sink, so
-    a trace tells 'survived the fault' from 'the fault never fired'."""
-    spans.get_telemetry().emit({"ev": "chaos", "ts": time.time(),
-                                "site": name, "kind": rule.kind,
-                                "hit": rule.hits})
+    """Every injection leaves a ``chaos`` event on the telemetry sink and
+    a count in the registry, so a trace tells 'survived the fault' from
+    'the fault never fired'. Broad except: the injector must work (and
+    kill) even with telemetry torn down."""
+    try:
+        get_registry().inc("chaos_injections")
+        spans.get_telemetry().emit({"ev": "chaos", "ts": time.time(),
+                                    "site": name, "kind": rule.kind,
+                                    "hit": rule.hits})
+    except Exception:
+        pass
 
 
 class ChaosInjector:

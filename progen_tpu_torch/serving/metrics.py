@@ -10,14 +10,17 @@ Throughput is derived, not sampled: the scheduler accumulates exact
 token counts and host time around the prefill and decode calls, and
 ``snapshot()`` divides. Latency lands in three reservoir families:
 ``ttft_s`` (submit to first token), ``itl_s`` (the gap between two
-tokens of one request) and ``latency_s`` (submit to done).
+tokens of one request) and ``latency_s`` (submit to done); an
+observation with a ``trace_id`` competes for the family's worst-K
+exemplars. ``structured()`` is the typed view the Prometheus exposition
+(``telemetry.prometheus_text``) renders.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional
 
-from progen_tpu_torch.telemetry.registry import _Timing
+from progen_tpu_torch.telemetry.registry import _QUANTILES, _Timing
 
 
 class ServingMetrics:
@@ -36,8 +39,9 @@ class ServingMetrics:
     def set_gauge(self, name: str, value: float) -> None:
         self.gauges[name] = float(value)
 
-    def observe(self, name: str, seconds: float) -> None:
-        self._timings.setdefault(name, _Timing()).observe(seconds)
+    def observe(self, name: str, seconds: float, trace_id=None) -> None:
+        self._timings.setdefault(name, _Timing()).observe(
+            seconds, trace_id=trace_id)
 
     def declare_timing(self, name: str) -> None:
         """Register a timing family at zero observations, so a snapshot
@@ -69,6 +73,32 @@ class ServingMetrics:
                 out[f"{name}_{stat}"] = v
         out.update(self._derived())
         return out
+
+    def structured(self) -> dict:
+        """Typed view for exposition formats that distinguish metric
+        kinds (``telemetry.prometheus``): counters (monotonic, the
+        accumulated-time counters included), gauges, derived rates, and
+        timings with reservoir quantiles and exemplars."""
+        return {
+            "counters": {
+                **{k: float(v) for k, v in self.counters.items()},
+                **self._times,
+            },
+            "gauges": dict(self.gauges),
+            "derived": self._derived(),
+            "timings": {
+                name: {
+                    "sum": t.sum,
+                    "count": t.count,
+                    "quantiles": {
+                        str(q): t.quantile(q) for q, _ in _QUANTILES
+                    },
+                    **({"exemplars": t.exemplars()}
+                       if t._exemplars else {}),
+                }
+                for name, t in self._timings.items()
+            },
+        }
 
     def log_to(self, tracker, step: Optional[int] = None,
                prefix: str = "serve/") -> None:

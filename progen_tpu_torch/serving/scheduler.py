@@ -429,7 +429,8 @@ class Scheduler:
                         dim=int(vec.shape[0]))
         self.metrics.inc("embed_requests")
         self.metrics.add_time("embed_time_s", t1 - t0)
-        self.metrics.observe("latency_s", t1 - t_submit)
+        self.metrics.observe("latency_s", t1 - t_submit,
+                             trace_id=req.trace_id)
         if self.journal is not None:
             self.journal.done(req.id, "completed", 0)
         self._embed_done.append(
@@ -560,7 +561,8 @@ class Scheduler:
             rec.n_generated += 1
             if rec.first_token_t is None:
                 rec.first_token_t = now
-                self.metrics.observe("ttft_s", now - rec.t_submit)
+                self.metrics.observe("ttft_s", now - rec.t_submit,
+                                     trace_id=rec.req.trace_id)
                 self._req_event("n", rec.req.id, "first_token",
                                 trace=rec.req.trace_id)
             else:
@@ -600,7 +602,8 @@ class Scheduler:
         self.engine.release(slot)
         del self._active[slot]
         self.metrics.inc("requests_completed")
-        self.metrics.observe("latency_s", now - rec.t_submit)
+        self.metrics.observe("latency_s", now - rec.t_submit,
+                             trace_id=rec.req.trace_id)
         done_t = time.time()
         self._req_event("e", rec.req.id, "decode", ts=done_t,
                         trace=rec.req.trace_id)

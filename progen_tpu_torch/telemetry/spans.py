@@ -10,9 +10,12 @@ counterpart of ``jax.named_scope``).
 
 The module-level ``span()``/``configure()`` pair drives one
 process-global ``Telemetry``, so callees open spans without a handle
-passed down. With no sink configured, records are dropped. Every span's
+passed down. With no sink configured, records are dropped, but the
+in-memory state of open and recently closed spans is kept: it is what
+the stall watchdog (``telemetry/watchdog.py``) reports. Every span's
 entry calls the hooks in ``SPAN_ENTRY_HOOKS`` with its name: the fault
-injector (``resilience/chaos.py``) registers there.
+injector (``resilience/chaos.py``) registers there. ``step_print`` is
+the train loop's step-stamped console line.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import itertools
 import json
 import threading
 import time
+from collections import deque
 from pathlib import Path
 from typing import Callable, Optional
 
@@ -68,12 +72,17 @@ class EventLog:
 
 
 class Telemetry:
-    """Span emitter. ``sink`` is any ``callable(dict)`` (an
-    ``EventLog.emit``) or None (records dropped)."""
+    """Span emitter and the in-memory state of open and recent spans.
+    ``sink`` is any ``callable(dict)`` (an ``EventLog.emit``, a
+    ``JsonlTracker.log_event``) or None (records dropped, state kept)."""
 
-    def __init__(self, sink: Optional[Callable[[dict], None]] = None):
+    def __init__(self, sink: Optional[Callable[[dict], None]] = None,
+                 max_recent: int = 64):
         self._sink = sink
         self._seq = itertools.count()
+        self._lock = threading.Lock()
+        self._open: dict = {}
+        self._recent: deque = deque(maxlen=max_recent)
 
     def set_sink(self, sink: Optional[Callable[[dict], None]]) -> None:
         self._sink = sink
@@ -82,10 +91,10 @@ class Telemetry:
         """Stamp the host and hand the record to the sink. A closed or
         broken sink is dropped rather than raised into the caller's
         loop."""
+        record.setdefault("pid", host_index())
         sink = self._sink
         if sink is None:
             return
-        record.setdefault("pid", host_index())
         try:
             sink(record)
         except (OSError, ValueError):
@@ -98,7 +107,10 @@ class Telemetry:
         thread = threading.current_thread()
         head = {"span": name, "id": next(self._seq), "tid": thread.ident,
                 "thread": thread.name}
-        self.emit({"ev": "B", **head, "ts": time.time(), **attrs})
+        begin = {"ev": "B", **head, "ts": time.time(), **attrs}
+        with self._lock:
+            self._open[head["id"]] = begin
+        self.emit(begin)
         t0 = time.perf_counter()
         try:
             for hook in SPAN_ENTRY_HOOKS:
@@ -106,9 +118,22 @@ class Telemetry:
             with torch.profiler.record_function(name):
                 yield
         finally:
-            self.emit({"ev": "E", **head, "ts": time.time(),
-                       "dur_s": round(time.perf_counter() - t0, 6),
-                       **attrs})
+            end = {"ev": "E", **head, "ts": time.time(),
+                   "dur_s": round(time.perf_counter() - t0, 6), **attrs}
+            with self._lock:
+                self._open.pop(head["id"], None)
+                self._recent.append(end)
+            self.emit(end)
+
+    def open_spans(self) -> list:
+        """Spans inside their body now: where the process is."""
+        with self._lock:
+            return sorted(self._open.values(), key=lambda r: r["id"])
+
+    def recent_spans(self, n: int = 16) -> list:
+        """The last ``n`` closed spans, oldest first."""
+        with self._lock:
+            return list(self._recent)[-n:]
 
 
 _GLOBAL = Telemetry()
@@ -132,3 +157,9 @@ def configure(sink: Optional[Callable[[dict], None]] = None,
 def span(name: str, **attrs):
     """A span on the process-global Telemetry."""
     return _GLOBAL.span(name, **attrs)
+
+
+def step_print(step, msg: str) -> None:
+    """Step-stamped console line, ``[HH:MM:SS step N] msg``: the tracker
+    stream carries ``_time``/``_step``, the console the same two."""
+    print(f"[{time.strftime('%H:%M:%S')} step {step}] {msg}", flush=True)

@@ -4,7 +4,9 @@
   * ``WandbTracker`` when the ``wandb`` package is installed (it is
     imported only then);
   * ``JsonlTracker`` otherwise: metrics appended as JSON lines to
-    ``{dir}/{project}/{run_id}/metrics.jsonl``, HTML samples as files;
+    ``{dir}/{project}/{run_id}/metrics.jsonl``, span, watchdog, retry and
+    anomaly records (``log_event``) to ``events.jsonl`` beside it, HTML
+    samples as files;
   * ``NoopTracker``: ``--wandb_off``, and every process but the
     coordinator.
 
@@ -40,6 +42,9 @@ class NoopTracker:
     def log(self, metrics: dict, step: Optional[int] = None) -> None:
         pass
 
+    def log_event(self, record: dict) -> None:
+        pass
+
     def log_html(self, name: str, html: str, step: Optional[int] = None) -> None:
         pass
 
@@ -56,9 +61,13 @@ class JsonlTracker(NoopTracker):
         self.path = Path(dir) / project / self.run_id
         self.path.mkdir(parents=True, exist_ok=True)
         self._metrics = (self.path / "metrics.jsonl").open("a")
-        # one write + flush per line under the lock, so lines from two
-        # threads never interleave
-        self._lock = threading.Lock()
+        self._events = None  # opened on the first event
+        # the watchdog thread, the async checkpoint's writer and the retry
+        # path emit through log_event concurrently with the loop's log():
+        # one write + flush per line under the lock, so lines never tear
+        # or interleave. Reentrant: a signal handler that logs while the
+        # main thread holds the lock mid-write must not deadlock.
+        self._lock = threading.RLock()
 
     def log(self, metrics: dict, step: Optional[int] = None) -> None:
         rec = {"_time": time.time(), **metrics}
@@ -70,6 +79,18 @@ class JsonlTracker(NoopTracker):
             self._metrics.write(json.dumps(rec) + "\n")
             self._metrics.flush()
 
+    def log_event(self, record: dict) -> None:
+        """A telemetry record -> events.jsonl beside metrics.jsonl, flushed
+        per line. Raises ValueError after ``finish()``: telemetry sinks
+        treat that as detach."""
+        with self._lock:
+            if self._events is None:
+                if self._metrics.closed:
+                    raise ValueError("tracker is finished")
+                self._events = (self.path / "events.jsonl").open("a")
+            self._events.write(json.dumps(record) + "\n")
+            self._events.flush()
+
     def log_html(self, name: str, html: str, step: Optional[int] = None) -> None:
         suffix = f"_{step}" if step is not None else ""
         (self.path / f"{name}{suffix}.html").write_text(html)
@@ -80,6 +101,8 @@ class JsonlTracker(NoopTracker):
     def finish(self) -> None:
         with self._lock:
             self._metrics.close()
+            if self._events is not None:
+                self._events.close()
 
 
 class WandbTracker(NoopTracker):

@@ -36,6 +36,10 @@ import torch
 from progen_tpu_torch._device import resolve_device
 from progen_tpu_torch.data.dataset import _sort_key, collate
 from progen_tpu_torch.resilience.chaos import maybe_inject
+from progen_tpu_torch.telemetry.prometheus import (
+    prometheus_text,
+    write_prometheus,
+)
 from progen_tpu_torch.telemetry.spans import get_telemetry
 from progen_tpu_torch.telemetry.trace import iter_jsonl
 from progen_tpu_torch.training.loss import sequence_scores
@@ -44,7 +48,6 @@ SCORE_OPS = ("start", "resume", "batch", "skip", "done")
 
 _JOURNAL_NAME = "score_journal.jsonl"
 _SHARD_FMT = "scores-%05d.jsonl"
-_ITEM_6 = "ROADMAP queue 1 item 6 (the host-side stack)"
 
 
 @torch.inference_mode()
@@ -240,14 +243,12 @@ def run_batch_score(
     op "skip": they cannot be scored with training semantics). A ragged
     final batch of a bucket is padded with empty rows whose results are
     dropped. ``max_batches`` stops after N scored batches (a
-    deterministic partial run). ``metrics``, ``prom_file`` and
-    ``metrics_every`` feed the Prometheus exposition, which is not ported
-    yet: setting one raises.
+    deterministic partial run). ``metrics`` (a ``MetricsRegistry``)
+    counts sequences, tokens, batches and skips and gauges the rates and
+    the goodput; with ``prom_file`` its exposition (prefix
+    ``progen_score_``) is rewritten every ``metrics_every`` batches (0 =
+    at the end only) and at the end.
     """
-    if metrics is not None or prom_file or metrics_every:
-        raise NotImplementedError(
-            "the scorer's metrics registry and Prometheus file are not "
-            f"ported yet: {_ITEM_6}")
     cfg = model.config
     seq_len = cfg.seq_len
     fixed_len = cfg.global_mlp_depth > 0  # see _bucket
@@ -305,6 +306,19 @@ def run_batch_score(
         journal.emit({"ev": "score", "op": "batch", "bucket": bucket,
                       "n": n, "scored": stats["n_scored"],
                       "step_s": round(dt, 6)})
+        if metrics is not None:
+            metrics.inc("sequences_scored", n)
+            metrics.inc("tokens_scored", int(mask[:n].sum()))
+            metrics.inc("batches")
+            elapsed = max(time.monotonic() - t0, 1e-9)
+            metrics.set_gauge("seq_per_s", stats["n_scored"] / elapsed)
+            metrics.set_gauge("tokens_per_s", stats["tokens"] / elapsed)
+            metrics.set_gauge("goodput_pct",
+                              100.0 * times["step"] / elapsed)
+            if prom_file and metrics_every > 0 \
+                    and stats["batches"] % metrics_every == 0:
+                write_prometheus(prom_file, prometheus_text(
+                    metrics, prefix="progen_score_"))
         # the kill site: SIGKILL lands AFTER the batch is durable (flushed
         # and fsynced above), so a resume re-scores nothing
         maybe_inject("score/batch")
@@ -317,6 +331,8 @@ def run_batch_score(
             journal.emit({"ev": "score", "op": "skip", "id": str(rid),
                           "n_tokens": n_tok, "seq_len": seq_len})
             stats["n_skipped"] += 1
+            if metrics is not None:
+                metrics.inc("skipped_too_long")
             continue
         b = _bucket(n_tok, seq_len, min_bucket, fixed_len)
         pending.setdefault(b, []).append((rid, raw))
@@ -335,6 +351,9 @@ def run_batch_score(
 
     writer.close()
     elapsed = max(time.monotonic() - t0, 1e-9)
+    if metrics is not None and prom_file:
+        write_prometheus(prom_file, prometheus_text(
+            metrics, prefix="progen_score_"))
     summary = {
         "n_scored": stats["n_scored"],
         "n_skipped": stats["n_skipped"],

@@ -145,11 +145,8 @@ def test_new_asks_then_resets(ws, monkeypatch, answer):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--async_checkpoint"], ["--hardware_rng"],
-    ["--profile_dir", "p"], ["--profile_pin", "p"], ["--stall_timeout", "1"],
-    ["--stall_escalate_after", "1"], ["--anomaly_factor", "1"],
-    ["--anomaly_patience", "1"], ["--prom_file", "p"], ["--prom_port", "1"],
-    ["--flight_dir", "f"], ["--mesh", "2"],
+    ["--hardware_rng"], ["--profile_pin", "p"], ["--flight_dir", "f"],
+    ["--mesh", "2"],
 ], ids=lambda f: f[0])
 def test_unported_flag_is_rejected(ws, capsys, flag):
     with pytest.raises(SystemExit) as exc:

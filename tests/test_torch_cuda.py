@@ -880,3 +880,64 @@ def test_two_ranks_tensor_and_pipeline_parallel_on_the_card(dev, tmp_path):
             torch.testing.assert_close(grads[name], g.cpu(),
                                        atol=5e-2 * scale, rtol=0,
                                        msg=lambda m: f"{path} {name}: {m}")
+
+
+def test_hbm_gauges_on_the_card(dev):
+    """The allocator gauges exist on the card, under the JAX names, and
+    in_use_gb grows by a 1 GB allocation."""
+    from progen_tpu_torch.telemetry import hbm_gauges
+    from progen_tpu_torch.telemetry.watchdog import _device_memory_stats
+
+    before = hbm_gauges()
+    assert {"hbm/in_use_gb", "hbm/peak_gb", "hbm/limit_gb",
+            "hbm/used_pct"} <= before.keys()
+    block = torch.empty(2**30, dtype=torch.uint8, device=dev)
+    after = hbm_gauges(dev)
+    assert after["hbm/in_use_gb"] >= before["hbm/in_use_gb"] + 0.99
+    assert after["hbm/peak_gb"] >= after["hbm/in_use_gb"]
+    assert after["hbm/limit_gb"] > 1.0
+    del block
+    stats = _device_memory_stats()
+    assert len(stats) == torch.cuda.device_count()
+    assert stats[0]["allocated_bytes.all.current"] >= 0
+
+
+def test_async_save_is_bit_equal_on_the_card(dev, tmp_path):
+    """An asynchronous save of a state on the card, a step that updates
+    it in place, then the save finalized: the files hash as a blocking
+    save of the state before the step."""
+    import hashlib
+
+    from progen_tpu_torch import ProGenConfig
+    from progen_tpu_torch.checkpoint import Package, get_checkpoint_fns
+    from progen_tpu_torch.training.step import (
+        init_train_state,
+        make_train_step,
+    )
+
+    cfg = ProGenConfig(**SMALL)
+    state = init_train_state(cfg, device=dev, seed=0)
+    gen = torch.Generator().manual_seed(1)
+    batch = torch.randint(1, 32, (2, 2, 65), generator=gen)
+    step = make_train_step()
+    step(state, batch)
+
+    def package():
+        return Package(next_seq_index=4, state=state,
+                       model_config=cfg.to_dict(), run_id="r")
+
+    def digests(path):
+        return {f: hashlib.sha256((tmp_path / path / f).read_bytes())
+                .hexdigest() for f in ("params.pt", "opt.pt")}
+
+    _, _, blocking = get_checkpoint_fns(str(tmp_path / "b"))
+    _, get_last, background = get_checkpoint_fns(str(tmp_path / "a"),
+                                                 async_save=True)
+    want = digests(blocking(package()))
+    got_path = background(package())
+    step(state, batch)
+    background.flush()
+    assert digests(got_path) == want
+    assert all(t.is_pinned() for t in background._async["buffers"].values())
+    pkg = get_last(device="cuda")
+    assert pkg.state["step"] == state.step - 1

@@ -67,7 +67,10 @@ def test_package_has_the_slice_modules():
                 "resilience.chaos", "resilience.retry", "ops.quant",
                 "cli.batch_score", "cli.scan", "cli.convert",
                 "parallel.tensor", "parallel.partition",
-                "parallel.pipeline", "parallel.pipeline_1f1b"):
+                "parallel.pipeline", "parallel.pipeline_1f1b",
+                "telemetry", "telemetry.prometheus", "telemetry.hbm",
+                "telemetry.goodput", "telemetry.watchdog",
+                "resilience.anomaly", "profiling"):
         assert f"progen_tpu_torch.{mod}" in names
 
 

@@ -9,6 +9,7 @@ the resume wire's fields, and every flag of the JAX CLI that is not
 ported refused with its ROADMAP item."""
 
 import json
+import re
 import os
 import subprocess
 import sys
@@ -205,3 +206,23 @@ def test_runs_on_the_card_unless_asked(ckpt, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.run(["--checkpoint_path", str(ckpt[0])])
+
+
+def test_prom_file_carries_the_metrics_and_exemplars(ckpt, tmp_path):
+    """--prom_file: the scheduler's metrics as Prometheus text under
+    progen_serve_, the latency reservoirs with the requests' trace ids
+    as exemplars, rewritten every --metrics-every steps and at exit."""
+    ck, _ = ckpt
+    prom = tmp_path / "serve.prom"
+    lines = [json.dumps({**REQUESTS[0], "trace_id": "tr-a"}),
+             json.dumps({**REQUESTS[3], "trace_id": "tr-b"})]
+    rc, events, err = _serve(ck, tmp_path, lines, "--prom_file", str(prom),
+                             "--metrics-every", "4", "--heartbeat", "0.05")
+    assert rc == 0, err
+    text = prom.read_text()
+    assert "progen_serve_requests_completed_total 2" in text
+    assert "# TYPE progen_serve_ttft_seconds summary" in text
+    assert "progen_serve_latency_seconds_count 2" in text
+    assert re.search(r'^progen_serve_latency_seconds\{quantile="0\.99"\} '
+                     r'\S+ # \{trace_id="tr-[ab]"\} \S+$', text, re.M)
+    assert "progen_serve_decode_tokens_per_s" in text

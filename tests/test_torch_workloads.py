@@ -248,14 +248,56 @@ class TestScoringWithinPort:
                         "n_tokens": BYTE["seq_len"] + 6,
                         "seq_len": BYTE["seq_len"]}
 
-    @pytest.mark.parametrize("kw", [{"metrics": object()},
-                                    {"prom_file": "p.prom"},
-                                    {"metrics_every": 2}],
+    @pytest.mark.parametrize("kw", [{}, {"prom_file": "p.prom"},
+                                    {"prom_file": "p.prom",
+                                     "metrics_every": 1}],
                              ids=["metrics", "prom_file", "metrics_every"])
-    def test_prometheus_arguments_name_item_6(self, tmp_path, byte_pair, kw):
-        _, _, pm = byte_pair
-        with pytest.raises(NotImplementedError, match="item 6"):
-            run_batch_score(pm, [], str(tmp_path), **kw)
+    def test_prometheus_arguments_feed_the_exposition(self, tmp_path,
+                                                      byte_pair, kw,
+                                                      monkeypatch):
+        """The scorer's registry counts what the JAX scorer's counts, on
+        the same records (one too long), and its exposition is written on
+        the same cadence with the same counter lines."""
+        from progen_tpu.telemetry import MetricsRegistry as JRegistry
+
+        from progen_tpu_torch.telemetry import MetricsRegistry
+
+        jm, tree, pm = byte_pair
+        recs = _records(5, 8, 20, seed=4) + [("long", b"X" * 40)]
+        out = {}
+        for name, fn, reg, mod in (
+                ("jax", lambda **k: jscoring.run_batch_score(
+                    jm, tree, list(recs), **k), JRegistry(), jscoring),
+                ("port", lambda **k: run_batch_score(pm, list(recs), **k),
+                 MetricsRegistry(), tscoring)):
+            writes = []
+            real = mod.write_prometheus
+            monkeypatch.setattr(mod, "write_prometheus",
+                                lambda p, t, real=real, w=writes:
+                                (w.append(t), real(p, t)))
+            k = dict(kw)
+            if "prom_file" in k:
+                k["prom_file"] = str(tmp_path / name / k["prom_file"])
+            fn(out_dir=str(tmp_path / name), batch_size=2, metrics=reg, **k)
+            out[name] = (reg.snapshot(), writes)
+        (jsnap, jwrites), (psnap, pwrites) = out["jax"], out["port"]
+        counters = ("sequences_scored", "tokens_scored", "batches",
+                    "skipped_too_long")
+        assert {c: psnap[c] for c in counters} == \
+            {c: jsnap[c] for c in counters} == {
+                "sequences_scored": 5.0, "tokens_scored": psnap[
+                    "tokens_scored"], "batches": 3.0,
+                "skipped_too_long": 1.0}
+        assert set(psnap) == set(jsnap)
+        assert len(pwrites) == len(jwrites) == {
+            "metrics": 0, "prom_file": 1, "metrics_every": 4}[
+            "metrics" if not kw else "prom_file" if len(kw) == 1
+            else "metrics_every"]
+        for pt, jt in zip(pwrites, jwrites):
+            def counter_lines(t):
+                return [ln for ln in t.splitlines() if "_total" in ln]
+            assert counter_lines(pt) == counter_lines(jt)
+            assert "progen_score_seq_per_s" in pt
 
     def test_journal_records_reach_the_telemetry_sink(self, tmp_path,
                                                       byte_pair):

@@ -12,9 +12,8 @@ over the killed and the resumed run, each record bit-equal to the
 in-process scorer's; the scan's JSON equal to ``mutagenesis_scan``; the
 infill's frozen characters verbatim and its tokens ``sample_fast``'s;
 the converted checkpoint's parameters the reference's; the int8
-server's streams ``sample_fast``'s on the dequantised weights; each
-unported flag refused with its ROADMAP item; the card as the default
-device.
+server's streams ``sample_fast``'s on the dequantised weights; the
+card as the default device.
 """
 
 import json
@@ -170,6 +169,24 @@ def test_batch_score_reads_a_tfrecord_split(ckpt, tmp_path, monkeypatch):
         ["r0", "r1", "r2"]
 
 
+def test_batch_score_prom_file(ckpt, tmp_path, monkeypatch):
+    """--prom_file and --metrics-every: the scorer's counters and rates as
+    Prometheus text under progen_score_, written at the end."""
+    ck, _, fasta = ckpt
+    monkeypatch.chdir(tmp_path)
+    prom = tmp_path / "score.prom"
+    summary = batch_score.run(
+        ["--device", "cpu", "--checkpoint_path", str(ck), "--input",
+         str(fasta), "--batch_size", "5", "--max_batches", "2",
+         "--prom_file", str(prom), "--metrics-every", "1"])
+    text = prom.read_text()
+    assert f"progen_score_sequences_scored_total {summary['n_scored']}" \
+        in text
+    assert "progen_score_batches_total 2" in text
+    for gauge in ("seq_per_s", "tokens_per_s", "goodput_pct"):
+        assert f"# TYPE progen_score_{gauge} gauge" in text
+
+
 def test_scan_writes_its_report(ckpt, tmp_path, capsys):
     ck, model, _ = ckpt
     out = tmp_path / "scan.json"
@@ -299,15 +316,6 @@ def test_serve_int8_over_stdin(ckpt, tmp_path):
         want = sample_fast(r["seed"], deq.eval(), prime, length, **kw)
         start = len(prime) + 1
         assert done[r["id"]]["text"] == decode_tokens(want.numpy()[start:])
-
-
-@pytest.mark.parametrize("flag", sorted(batch_score.NOT_PORTED))
-def test_batch_score_refuses_unported_flags(flag, capsys):
-    with pytest.raises(SystemExit) as exc:
-        batch_score.parse_args(["--input", "x.fasta", flag, "1"])
-    assert exc.value.code == 2
-    assert f"{flag} is not ported yet: ROADMAP queue 1 item 6" in \
-        capsys.readouterr().err
 
 
 def test_serve_parses_int8_both_ways():

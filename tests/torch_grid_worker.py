@@ -259,3 +259,77 @@ def cli_train(rank, workdir, argv):
     res = train.run(list(argv))
     return {k: res[k] for k in ("steps", "valid_losses", "samples", "saves",
                                 "next_seq_index")}
+
+
+def consistent(rank, workdir):
+    """``consistent_flag`` with this rank's verdict (rank 0 True, the
+    others False; then every rank False), and ``per_host_reports`` of a
+    ledger whose step bucket holds ``rank + 1`` seconds."""
+    from progen_tpu_torch.resilience.anomaly import consistent_flag
+    from progen_tpu_torch.telemetry.goodput import (
+        GoodputLedger,
+        per_host_reports,
+    )
+
+    t = {"now": 0.0}
+    ledger = GoodputLedger(clock=lambda: t["now"])
+    with ledger.track("step"):
+        t["now"] += rank + 1.0
+    t["now"] = 4.0
+    return {"mixed": consistent_flag(rank == 0),
+            "none": consistent_flag(False),
+            "reports": per_host_reports(ledger)}
+
+
+def saved_bytes(rank, workdir, runs):
+    """For each (schedule, M) of ``runs``: the most bytes this stage holds
+    for backward at once over one micro-step (distinct storages packed
+    by ``torch.autograd.graph.saved_tensors_hooks`` and still referenced
+    by a graph; the parameters' own storages left out)."""
+    from progen_tpu_torch.parallel import init_grid
+    from progen_tpu_torch.parallel.pipeline import (
+        StageLinks,
+        _local_batch,
+        gpipe_micro_step,
+        init_pipeline_state,
+    )
+    from progen_tpu_torch.parallel.pipeline_1f1b import (
+        pipeline_1f1b_micro_step,
+    )
+
+    grid = init_grid(1, 1, model=2)
+    inputs = _inputs(workdir)
+    links = StageLinks(grid)
+    micro_fn = {"gpipe": gpipe_micro_step, "1f1b": pipeline_1f1b_micro_step}
+    out = {}
+    for schedule, m in runs:
+        state = init_pipeline_state(_config(inputs), _opt(), seed=0,
+                                    device="cpu", grid=grid)
+        net = state.model
+        own = {p.untyped_storage().data_ptr() for p in net.parameters()}
+        refs, sizes, live = {}, {}, [0, 0]  # live: now, most
+
+        class Held:
+            def __init__(self, t):
+                self.t, self.key = t, t.untyped_storage().data_ptr()
+                if self.key in own:
+                    return
+                if refs.get(self.key, 0) == 0:
+                    sizes[self.key] = t.untyped_storage().nbytes()
+                    live[0] += sizes[self.key]
+                    live[1] = max(live)
+                refs[self.key] = refs.get(self.key, 0) + 1
+
+            def __del__(self):
+                if self.key in own:
+                    return
+                refs[self.key] -= 1
+                if refs[self.key] == 0:
+                    live[0] -= sizes[self.key]
+
+        rows = _local_batch(net, inputs["batch"], grid)[0]
+        with torch.autograd.graph.saved_tensors_hooks(Held, lambda h: h.t):
+            micro_fn[schedule](net, links, rows.chunk(m))
+        out[schedule, m] = live[1]
+        del state, net
+    return out
