@@ -80,7 +80,8 @@ Phases, one line each:
      headers, lengths 64..1000, from a numpy seed); cli.train takes 4
      steps (batch 4 x 4, checkpoint and validate every 2, a sample at step
      0), then resumes for 2 more; cli.eval walks the valid split;
-     cli.sample decodes one sequence. With the launch counts set to 0
+     cli.sample decodes one sequence (each decode cut to 32 new tokens
+     since slice 9, CLI_SAMPLE_TOKENS). With the launch counts set to 0
      just before and read just after, every step must launch A1 48, A2
      24, L1 96 and L2 16 times and each eval forward A1 6, L1 12, L2 2.
      Checks: every loss finite; the first run's final checkpoint restores
@@ -162,17 +163,19 @@ Phases, one line each:
      time and ptxas's spill bytes at d = 128, and L1 and L2 at large's
      widths). Each rank runs in turn, with its launch counts set to 0
      just before each part and read per step: tensor parallelism at
-     configs/model/large.toml (dim 1792, depth 24, 14 heads of 128,
-     1,223,815,168 parameters, bfloat16; grid data 1 x model 2): 3 steps
+     configs/model/large.toml's widths (dim 1792, 14 heads of 128) with
+     its depth cut to 6 since slice 9 (TP_DEPTH; 298,584,064 parameters,
+     bfloat16; grid data 1 x model 2): 3 steps
      of make_train_step(grid) on (2, 2, 1025) random tokens, each rank
-     launching A1 96, A2 48, L1 192 and L2 8 times a step; rank 0 then
+     launching A1 24, A2 12, L1 48 and L2 8 times a step; rank 0 then
      takes the same 3 steps alone in bfloat16 and in float32 from the
      same weights and holds the grid's losses, first gradients (gathered
      whole) and parameter changes against them by phase 7's rule
      (SEQPAR_*; the gradient cosine by TP_COS_RULE: tensor parallelism
      rounds its row-parallel sums otherwise than one process, see
      tools/tp_rounding.py); the float32 form of the rule at base widths with depth
-     cut to 4; ZeRO-1 on data 2 x model 1 at base.toml, 3 steps on
+     cut to 4; ZeRO-1 on data 2 x model 1 at base.toml's widths with
+     its depth cut to 6 (ZERO1_DEPTH), 3 steps on
      (2, 4, 1025), bit-equal to the same ranks without it, each rank's
      moment bytes halved; GPipe and then 1F1B on 2 stages (11 uniform
      layers each, the gMLP layers and the head on the last) with 4
@@ -197,9 +200,9 @@ Phases, one line each:
  12. resilience, the training-side telemetry and fault tolerance: in
      build/chip_smoke_resilience/ (removed afterwards), the synthetic
      FASTA of phase 8 through generate_data, then python -m
-     progen_tpu_torch.cli.train in a child process at base.toml whole
-     (24 layers, 401,378,560 parameters, --mixed_precision, batch 4 x 4,
-     7 steps) with --async_checkpoint --checkpoint_every 3 --prom_file
+     progen_tpu_torch.cli.train in a child process at base.toml's widths
+     with the depth cut to 6 since slice 9 (RES_DEPTH; --mixed_precision,
+     batch 4 x 4, 7 steps) with --async_checkpoint --checkpoint_every 3 --prom_file
      --profile_dir --stall_timeout 300 --stall_escalate_after 2
      --anomaly_patience 3 and PROGEN_CHAOS=train/loss:nan@3: it must exit
      0 after logging "anomaly rollback 1/3" (the state restored from an
@@ -209,13 +212,44 @@ Phases, one line each:
      (0, 1] within 1% of tokens_per_sec_per_chip x flops_per_token /
      989e12; its trace must name fwd_tc_kernel and the train/step span;
      its final checkpoint must restore, its cursor and step the
-     rollback's plus the steps after it. Then, in this process at base:
+     rollback's plus the steps after it. Then, in this process at that
+     depth:
      hbm_gauges() non-empty; a blocking save of a train state, an
      asynchronous save of it, one train step (launches counted), the
      asynchronous save finalized: its files must hash as the blocking
      save's. It prints the CLI's step time, tokens/s and MFU beside
      phase 5's and phase 8's, the goodput split, the seconds each save
-     costs the loop, the profile window's seconds and the phase's.
+     costs the loop, the profile window's seconds and the phase's;
+ 13. fleet, the serving fleet's data plane at base.toml whole in
+     bfloat16, in build/chip_smoke_fleet/ (removed afterwards): two
+     params-only checkpoints, A (seeded weights) and B (A plus seeded
+     noise, saved once the replicas chose A); two cli.serve children at
+     one slot, r0 on --socket and r1 on --tcp 127.0.0.1:0 with
+     PROGEN_FLEET_TOKEN and PROGEN_CHAOS=serve/decode:kill@136; one
+     cli.router over both (--replica sock=... and tcp=..., journal and
+     prom each) takes 8 lines on stdin, then EOF: 6 generates of 96 new
+     tokens (g0 and its twin g0tcp, which the router's alternation puts
+     on the two wires), an infill, an embedding. It must exit 0 with
+     each id settled once and nothing rejected, r1 dead by its kill, a
+     resumed handoff in its route records, g0 dispatched to r0 alone and
+     g0tcp to r1 alone, every stream (both lives of the cut ones)
+     contiguous from its first generated position and equal to
+     sample_fast on A, g0 equal to g0tcp, and the embedding within 1e-6
+     of engine.embed here (a check: its launches are not the path's).
+     The path's launches are the replica's that answered the embed, in
+     its own process: its exposition's progen_serve_kernel_launches_*
+     gauges, read once it exited, must show one forward's (A1 24, L1 48,
+     L2 2). Then r0 is SIGHUPed while it streams
+     two requests on its socket: "reload: now serving" B, no rejection,
+     each id done once, and the two sent after the commit equal
+     sample_fast on B from their first generated position. Meanwhile cli.router --spawn 2 --respawn
+     --replica_reload_watch 1 boots on B; replica0 is SIGKILLed and must
+     come back with "replay: resumed", replica1's reload.pin to A must be
+     acked committed, and 2 requests settle. Last, WeightReloader here on
+     a 4-slot engine, from B to A by name while it decodes: it prints the
+     pool's step interval while the load stages against without, the
+     peak bytes the staging adds, the reload's seconds, and fails unless
+     every live parameter kept its address and holds A's values.
 
 Phase 2 also holds A4 (forward and both backwards, with a halo) against
 its plain versions at long8k's shard shapes with 2 shards, and runs the
@@ -242,6 +276,8 @@ import itertools
 import json
 import os
 import re
+import select
+import signal
 import socket
 import subprocess
 import sys
@@ -854,27 +890,16 @@ def collate(strings, seq_len: int) -> torch.Tensor:
     return out
 
 
-def wrappers() -> dict:
-    """Kernel id -> its wrapper, which counts its launches."""
-    from progen_tpu_torch.ops import cuda_attention, cuda_layers
-
-    return {"A1": cuda_attention.local_attention_fwd,
-            "A2": cuda_attention.local_attention_bwd_kv,
-            "A3": cuda_attention.local_attention_bwd_halo,
-            "A4-fwd": cuda_attention.local_attention_halo_fwd,
-            "A4-kv": cuda_attention.local_attention_halo_bwd_kv,
-            "A4-halo": cuda_attention.local_attention_halo_bwd_halo,
-            "L1": cuda_layers.norm_shift,
-            "L2": cuda_layers.sgu_mix_gate}
-
-
 def launch_counts() -> dict:
-    return {rid: fn.launches for rid, fn in wrappers().items()}
+    from progen_tpu_torch.ops import launches
+
+    return launches.launch_counts()
 
 
 def reset_counts() -> None:
-    for fn in wrappers().values():
-        fn.launches = 0
+    from progen_tpu_torch.ops import launches
+
+    launches.reset_counts()
 
 
 def per_forward(cfg) -> dict:
@@ -1600,6 +1625,10 @@ CLI_FRESH_STEPS, CLI_RESUME_STEPS = 4, 2
 # keep the whole script inside its time limit (its three 1000-token
 # decodes and 4.8 GB checkpoints took most of the phase's 307 s at 24)
 CLI_DEPTH = 6
+# its three decodes (the cadenced sample, cli.sample and the reference)
+# cut from 1,000 tokens to CLI_SAMPLE_TOKENS new ones since slice 9: at
+# depth 6 they were still most of the phase (148.5 s on a slow host)
+CLI_SAMPLE_TOKENS = 32
 CLI_PRIME = "[tax=Homo sapiens] #"
 CLI_SEED = 0  # the FASTA's, the ETL's, the model's; the sample's + 7
 TAXA = [("Homo sapiens", 9606), ("Mus musculus", 10090),
@@ -1729,8 +1758,9 @@ def phase_cli(cfg, train: dict) -> dict:
     under build/ that is removed afterwards: generate_data on a synthetic
     FASTA; train 4 steps (batch 4 x 4, checkpoint and validate every 2, a
     sample at step 0); train again, resuming, 2 steps; eval on the valid
-    split; sample one sequence. With the launch counts set to 0 just
-    before and read just after; every step must launch per_step(cfg)."""
+    split; sample one sequence. Every decode is cut to CLI_SAMPLE_TOKENS
+    new tokens. With the launch counts set to 0 just before and read just
+    after; every step must launch per_step(cfg)."""
     import shutil
 
     from progen_tpu_torch import ProGen, ProGenConfig
@@ -1772,7 +1802,8 @@ def phase_cli(cfg, train: dict) -> dict:
         step_counts = []
         reset_counts()
         with mock.patch.object(cli_train, "make_train_step", counted_steps(
-                cli_train.make_train_step, step_counts)):
+                cli_train.make_train_step, step_counts)), \
+                short_samples(cli_train, CLI_SAMPLE_TOKENS):
             fresh = cli_train.run(args + ["--num_steps",
                                           str(CLI_FRESH_STEPS)])
             _, get_last, _ = get_checkpoint_fns(str(ck))
@@ -1784,9 +1815,11 @@ def phase_cli(cfg, train: dict) -> dict:
         evaluated = cli_eval.run(["--device", "cuda", "--checkpoint_path",
                                   str(ck), "--data_path", str(data),
                                   "--split", "valid"])
-        sampled = cli_sample.run(["--device", "cuda", "--checkpoint_path",
-                                  str(ck), "--seed", str(CLI_SEED + 7),
-                                  "--prime", CLI_PRIME])
+        with short_samples(cli_sample, CLI_SAMPLE_TOKENS):
+            sampled = cli_sample.run(["--device", "cuda",
+                                      "--checkpoint_path", str(ck), "--seed",
+                                      str(CLI_SEED + 7), "--prime",
+                                      CLI_PRIME])
         counts = launch_counts()
 
         bad = []
@@ -1822,8 +1855,9 @@ def phase_cli(cfg, train: dict) -> dict:
                        device="cuda", seed=None)
         model.load_state_dict(pkg.state)
         del pkg
-        want_tokens = sample_fast(CLI_SEED + 7, model.eval(),
-                                  encode_tokens(CLI_PRIME), cfg.seq_len,
+        prime = encode_tokens(CLI_PRIME)
+        want_tokens = sample_fast(CLI_SEED + 7, model.eval(), prime,
+                                  len(prime) + 1 + CLI_SAMPLE_TOKENS,
                                   top_k=25, add_bos=True, device="cuda")
         del model
         if not torch.equal(sampled["tokens"], want_tokens):
@@ -2909,6 +2943,10 @@ def phase_workloads(cfg, score: dict, card: str) -> dict:
 # --mesh_model 2, on GRID_RANKS ranks that share the card over gloo
 GRID_RANKS, GRID_TIMEOUT = 2, 900  # seconds: the collectives, the join
 TP_ACCUM, TP_MICRO = 2, 2  # large.toml's (2, 2, 1025) batch
+# large.toml's widths and base.toml's for ZeRO-1, with the depth cut from
+# 24 to 6 since slice 9: at 24, tensor parallelism took 111.9 s and
+# ZeRO-1 26.7 s of the phase on a slow host (the script then ran 1,178 s)
+TP_DEPTH, ZERO1_DEPTH = 6, 6
 F32_DEPTH = 4  # the float32 rule's model: base widths, depth cut to 4
 ZERO1_ACCUM, ZERO1_MICRO = 2, 4
 PIPE_MICRO, PIPE_M = 8, 4  # (1, 8, 1025), 4 microbatches of 2 rows
@@ -2934,6 +2972,11 @@ def large_config():
 
     return ProGenConfig.from_dict(load_toml_config(
         str(REPO / "configs" / "model" / "large.toml")))
+
+
+def tp_config():
+    """Tensor parallelism's model: large.toml's widths at TP_DEPTH."""
+    return dataclasses.replace(large_config(), depth=TP_DEPTH)
 
 
 def grid_batch(cfg, accum: int, micro: int, seed: int) -> torch.Tensor:
@@ -3381,17 +3424,16 @@ def grid_cli_args(work: Path, steps: int, batch: int) -> list:
 
 
 @contextlib.contextmanager
-def short_samples(cli_train):
-    """The CLI's cadenced sample cut to GRID_SAMPLE_TOKENS new tokens (the
-    whole model gathered and decoding as ever; only the length cut, to
-    save the phase ~40 s of a 1024-token decode)."""
-    real = cli_train.sample_fast
+def short_samples(cli, tokens: int = GRID_SAMPLE_TOKENS):
+    """A CLI module's sample_fast cut to ``tokens`` new tokens (the model
+    decoding as ever; only the length cut, to save a phase ~40 s of a
+    1024-token decode)."""
+    real = cli.sample_fast
 
     def short(seed, model, prime, length, **kw):
-        return real(seed, model, prime, len(prime) + 1 + GRID_SAMPLE_TOKENS,
-                    **kw)
+        return real(seed, model, prime, len(prime) + 1 + tokens, **kw)
 
-    with mock.patch.object(cli_train, "sample_fast", short):
+    with mock.patch.object(cli, "sample_fast", short):
         yield
 
 
@@ -3452,14 +3494,15 @@ def grid_rank(rank: int, port: int, work: str) -> None:
         rec[name] = fn(*a)
         parts[name] = time.perf_counter() - t
 
-    part("tp_large", tp_part, rank, tp, large_config(), "bf16", TP_ACCUM,
+    part("tp_large", tp_part, rank, tp, tp_config(), "bf16", TP_ACCUM,
          TP_MICRO, 14)
     rec["matmul_f32_route"] = {f"{d} {t}": r for (d, t), r in
                                tensor.MATMUL_F32_ROUTE.items()}
     part("tp_f32", tp_part, rank, tp,
          dataclasses.replace(base, depth=F32_DEPTH, dtype="float32"),
          "f32", TP_ACCUM, TP_MICRO, 15)
-    part("zero1", zero1_part, rank, init_grid(2, 1, model=1), base)
+    part("zero1", zero1_part, rank, init_grid(2, 1, model=1),
+         dataclasses.replace(base, depth=ZERO1_DEPTH))
     part("pipe", pipe_part, rank, init_grid(1, 1, model=2), base)
     part("cli", cli_part, rank, work)
     rec["parts_s"] = parts
@@ -3577,11 +3620,13 @@ def phase_grid(base, card: str, tc: dict) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
     bad = []
-    want_tp = per_step(large, accum=TP_ACCUM)
+    tpcfg = tp_config()
+    want_tp = per_step(tpcfg, accum=TP_ACCUM)
     f32cfg = dataclasses.replace(base, depth=F32_DEPTH)
     want = {"tp_large": want_tp,
             "tp_f32": per_step(f32cfg, accum=TP_ACCUM),
-            "zero1": per_step(base, accum=ZERO1_ACCUM)}
+            "zero1": per_step(dataclasses.replace(base, depth=ZERO1_DEPTH),
+                              accum=ZERO1_ACCUM)}
     for r in ranks:
         for key, w in want.items():
             for i, st in enumerate(r[key]["steps"]):
@@ -3635,9 +3680,10 @@ def phase_grid(base, card: str, tc: dict) -> dict:
         card=card, large_rows=rows, ranks=GRID_RANKS, backend="gloo",
         matmul_f32_route=ranks[0]["matmul_f32_route"],
         tp_large=dict(
-            config="configs/model/large.toml", grid=[1, 1, 2],
+            config=f"configs/model/large.toml widths, depth {TP_DEPTH}",
+            grid=[1, 1, 2],
             batch=[TP_ACCUM, TP_MICRO, large.seq_len + 1],
-            num_params=large.num_params(),
+            num_params=tpcfg.num_params(),
             launches_per_step_and_rank=want_tp,
             step_ms_per_rank=[r["step_ms"] for r in tp],
             tokens_per_s=tokens / (max(r["step_ms"] for r in tp) / 1e3),
@@ -3653,8 +3699,8 @@ def phase_grid(base, card: str, tc: dict) -> dict:
                     step_ms_per_rank=[r["tp_f32"]["step_ms"] for r in ranks],
                     **{k: v for k, v in ranks[0]["tp_f32"]["judge"].items()
                        if k != "bad"}),
-        zero1=dict(grid=[2, 1, 1], batch=[ZERO1_ACCUM, ZERO1_MICRO,
-                                          base.seq_len + 1],
+        zero1=dict(grid=[2, 1, 1], depth=ZERO1_DEPTH,
+                   batch=[ZERO1_ACCUM, ZERO1_MICRO, base.seq_len + 1],
                    **{k: [r["zero1"][k] for r in ranks] for k in (
                        "step_ms", "plain_step_ms", "moment_bytes",
                        "plain_moment_bytes", "moments_cut",
@@ -3710,17 +3756,22 @@ def phase_grid(base, card: str, tc: dict) -> dict:
 RES_STEPS = 7  # the rollback (steps 1-3 poisoned) and 2 measured steps
 RES_CHAOS = "train/loss:nan@3"  # the JAX package's rollback test's spec
 RES_MFU_RTOL = 0.01
+# base.toml's widths, depth cut to RES_DEPTH since slice 9: at 24 layers
+# the phase took 160.9-176.6 s and, with phase 13, the script 1,044 s of
+# its 1,200 s on an H100 80GB HBM3 at 700 W
+RES_DEPTH = 6
 
 
 def resilience_cli(work: Path, data: Path) -> dict:
-    """cli.train in a child process at base.toml whole with every flag of
-    the slice on and PROGEN_CHAOS=RES_CHAOS (no tracker: the card's
-    machine has wandb installed and no login); its output, exposition and
-    profile directory."""
+    """cli.train in a child process at base.toml's widths (depth
+    RES_DEPTH, the TOML in work/model_cfg) with every flag of the slice on
+    and PROGEN_CHAOS=RES_CHAOS (no tracker: the card's machine has wandb
+    installed and no login); its output, exposition and profile
+    directory."""
     ck, prof, prom = work / "ckpts", work / "profile", work / "train.prom"
     args = [sys.executable, "-m", "progen_tpu_torch.cli.train",
             "--device", "cuda", "--mixed_precision", "--wandb_off",
-            "--config_path", str(REPO / "configs" / "model"),
+            "--config_path", str(work / "model_cfg"),
             "--model_name", "base", "--data_path", str(data),
             "--checkpoint_path", str(ck), "--batch_size", str(TRAIN_MICRO),
             "--grad_accum_every", str(TRAIN_ACCUM), "--checkpoint_every",
@@ -3828,7 +3879,7 @@ def check_resilience_cli(cfg, run: dict) -> tuple:
 
 
 def async_against_blocking(cfg, work: Path) -> dict:
-    """In this process, at base: a blocking save of a state, then an
+    """In this process, at ``cfg``: a blocking save of a state, then an
     asynchronous save of it, one train step on it (which updates its
     tensors in place, launches counted), then the asynchronous save
     finalized: its files must hash as the blocking save's. The seconds
@@ -3890,9 +3941,12 @@ def phase_resilience(cfg, card: str, result: dict) -> dict:
     from progen_tpu_torch.telemetry import hbm_gauges
 
     t_phase = time.perf_counter()
+    cfg = dataclasses.replace(cfg, depth=RES_DEPTH)
     work = REPO / "build" / "chip_smoke_resilience"
     shutil.rmtree(work, ignore_errors=True)
     (work / "data_cfg").mkdir(parents=True)
+    (work / "model_cfg").mkdir()
+    cut_model_toml(work / "model_cfg" / "base.toml", RES_DEPTH)
     bad, parts = [], {}
     try:
         t = time.perf_counter()
@@ -3922,7 +3976,7 @@ def phase_resilience(cfg, card: str, result: dict) -> dict:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     out = dict(
-        card=card, config="configs/model/base.toml",
+        card=card, config="configs/model/base.toml", depth=RES_DEPTH,
         num_params=cfg.num_params(), chaos=RES_CHAOS, steps=RES_STEPS,
         batch=[TRAIN_ACCUM, TRAIN_MICRO, cfg.seq_len + 1],
         cli_step_ms_p50=cli["step_ms_p50"],
@@ -3947,6 +4001,640 @@ def phase_resilience(cfg, card: str, result: dict) -> dict:
     if bad:
         raise AssertionError("resilience: " + "; ".join(bad))
     return dict(out, launches=saves["launches"])
+
+
+# phase 13: the serving fleet's data plane at base.toml whole, in bfloat16
+FLEET_NEW = 96  # new tokens of each generate request
+FLEET_MAX_LEN = 256
+FLEET_KILL = 136  # r1's decode step of death: 40 steps into its 2nd stream
+FLEET_TOKEN = "chip-smoke-fleet"
+RELOAD_NEW = 48  # new tokens of the reload part's requests
+RESPAWN_NEW = 16
+INPROC_STEPS = 24  # pool steps timed without the reload's staging
+SERVE_DEFAULTS = {"length": FLEET_MAX_LEN, "top_k": 25, "temperature": 1.0,
+                  "top_p": None, "seed": 42}
+
+
+class ParamsState:
+    """What ``checkpoint.py``'s save reads of a train state, for the
+    parameters alone (no optimizer moments): the checkpoint a serving
+    fleet reads (``restore_params``), 1.6 GB at base in float32."""
+
+    class _NoMoments:
+        @staticmethod
+        def state_dict():
+            return {"count": 0, "mu": {}, "nu": {}}
+
+    optimizer = _NoMoments()
+
+    def __init__(self, model):
+        self.model, self.step = model, 0
+
+
+def save_params(ck: Path, model) -> str:
+    """The model's parameters as a checkpoint in ``ck``; its name."""
+    from progen_tpu_torch.checkpoint import Package, get_checkpoint_fns
+
+    return Path(get_checkpoint_fns(str(ck))[2](Package(
+        next_seq_index=0, state=ParamsState(model),
+        model_config=model.config.to_dict(), run_id=None))).name
+
+
+def fleet_requests() -> list:
+    """Phase 13's 8 request lines, in the order the router alternates
+    them over r0 (unix) and r1 (TCP): g0 and its twin g0tcp (the same
+    request over the two wires), generates of FLEET_NEW new tokens, an
+    infill freezing every third position, an embedding."""
+    def gen(rid, text, seed):
+        return {"id": rid, "prime": text, "length": 1 + len(text)
+                + FLEET_NEW, "seed": seed}
+
+    template = "".join(c if i < 4 or i % 3 == 0 else "?"
+                       for i, c in enumerate(PROTEINS[6][:72]))
+    g0 = gen("g0", PROTEINS[0][:16], 300)
+    return [g0, {**g0, "id": "g0tcp"},
+            gen("g1", PROTEINS[1][:20], 301),
+            gen("g2", PROTEINS[2][:12], 302),
+            gen("g3", PROTEINS[4][:24], 303),
+            {"id": "infill", "template": template, "seed": 304},
+            gen("g4", PROTEINS[5][:14], 305),
+            {"id": "embed", "prime": PROTEINS[7], "embed": True}]
+
+
+def parsed_request(wire: dict):
+    """A request line as cli.serve parses it (its defaults)."""
+    from progen_tpu_torch.cli import serve
+
+    req, err = serve.parse_request(json.dumps(wire), SERVE_DEFAULTS)
+    if err is not None:
+        raise AssertionError(f"{wire['id']}: {err}")
+    return req
+
+
+def fleet_reference(model, wire: dict) -> np.ndarray:
+    """sample_fast's stream for one generate or infill line, on the
+    model's device."""
+    from progen_tpu_torch.sampling import sample_fast
+
+    req = parsed_request(wire)
+    return sample_fast(req.seed, model, req.prime, req.length,
+                       top_k=req.top_k, add_bos=req.add_bos,
+                       temperature=req.temperature, top_p=req.top_p,
+                       template=req.template, frozen=req.frozen,
+                       device=model.device).cpu().numpy()
+
+
+def first_generated(wire: dict) -> int:
+    """The position of a request line's first generated token: its primed
+    positions (BOS and the prime, or an infill's leading frozen run)."""
+    from progen_tpu_torch.cli import serve
+
+    return serve._start(parsed_request(wire))
+
+
+def stream_check(got: dict, want: np.ndarray, start: int) -> bool:
+    """A stream of {index: token}: contiguous from ``start`` (no lost
+    head), equal to ``want`` where it ran, and stopped where ``want``
+    stops (only zeros after it)."""
+    idx = sorted(got)
+    return bool(idx and idx == list(range(start, idx[-1] + 1))
+                and np.array_equal([got[i] for i in idx],
+                                   want[idx[0]:idx[-1] + 1])
+                and (want[idx[-1] + 1:] == 0).all())
+
+
+def spawn_serve(ck: Path, rdir: Path, device: str, *flags, env=None):
+    """cli.serve in a child on ``device`` at one slot, its journal and
+    exposition in ``rdir``, stderr to rdir/stderr.log; the kernels it
+    loads were built by this process."""
+    rdir.mkdir(parents=True, exist_ok=True)
+    return subprocess.Popen(
+        [sys.executable, "-m", "progen_tpu_torch.cli.serve", "--device",
+         device, "--checkpoint_path", str(ck), "--max-slots", "1", "--max-len",
+         str(FLEET_MAX_LEN), "--journal_dir", str(rdir), "--prom_file",
+         str(rdir / "metrics.prom"), "--metrics-every", "8", *flags],
+        stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL,
+        stderr=open(rdir / "stderr.log", "ab"), cwd=rdir,
+        env=dict(os.environ, PYTHONPATH=str(REPO), **(env or {})))
+
+
+def wait_for(pred, what: str, procs=(), timeout: float = 240.0):
+    """Poll ``pred()`` until it is truthy; fail when a process in
+    ``procs`` exits first or the deadline passes. Returns its value."""
+    deadline = time.monotonic() + timeout
+    while True:
+        got = pred()
+        if got:
+            return got
+        for p in procs:
+            if p.poll() is not None:
+                raise AssertionError(f"{what}: a child exited rc "
+                                     f"{p.returncode} first")
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what}: not within {timeout} s")
+        time.sleep(0.05)
+
+
+def log_text(path: Path) -> str:
+    return path.read_text(errors="replace") if path.exists() else ""
+
+
+def listening(rdir: Path):
+    """A replica's endpoint once its log says it listens, else None."""
+    m = re.search(r"listening on (tcp )?(\S+)", log_text(rdir / "stderr.log"))
+    return None if m is None else m.group(2)
+
+
+def start_reader(stream, sink: list):
+    """Collect (arrival time, line) from a child's stdout on a thread, so
+    the pipe never fills while this process computes."""
+    import threading
+
+    def run():
+        for ln in stream:
+            sink.append((time.monotonic(), ln.rstrip("\n")))
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    return th
+
+
+def events_of(lines) -> list:
+    out = []
+    for _, ln in lines:
+        try:
+            out.append(json.loads(ln))
+        except ValueError:
+            pass
+    return out
+
+
+def route_records(cwd: Path) -> list:
+    recs = []
+    for path in cwd.glob("runs/progen-router/*/events.jsonl"):
+        for ln in path.read_text().splitlines():
+            rec = json.loads(ln)
+            if rec.get("ev") == "route":
+                recs.append(rec)
+    return sorted(recs, key=lambda r: r["ts"])
+
+
+def fleet_run(work: Path, ck: Path, r0_sock: str, r1_tcp: str) -> dict:
+    """cli.router over r0 (unix) and r1 (TCP, with the fleet token), the
+    8 request lines on its stdin, then EOF; its events by arrival."""
+    lines = []
+    t = time.perf_counter()
+    router = subprocess.Popen(
+        [sys.executable, "-m", "progen_tpu_torch.cli.router",
+         "--replica", f"sock={r0_sock},journal={work / 'r0'},"
+         f"prom={work / 'r0' / 'metrics.prom'}",
+         "--replica", f"tcp={r1_tcp},journal={work / 'r1'},"
+         f"prom={work / 'r1' / 'metrics.prom'}"],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=open(work / "router.log", "ab"), text=True, cwd=work,
+        env=dict(os.environ, PYTHONPATH=str(REPO),
+                 PROGEN_FLEET_TOKEN=FLEET_TOKEN))
+    reader = start_reader(router.stdout, lines)
+    router.stdin.write("".join(json.dumps(w) + "\n"
+                               for w in fleet_requests()))
+    router.stdin.close()
+    rc = router.wait(timeout=600)
+    reader.join(60)
+    return dict(rc=rc, lines=lines, seconds=time.perf_counter() - t,
+                routes=route_records(work))
+
+
+def check_fleet_run(run: dict, refs: dict, embed_vec) -> tuple:
+    """Phase 13's fleet checks; (bad, summary)."""
+    bad = []
+    evs = events_of(run["lines"])
+    ids = [w["id"] for w in fleet_requests()]
+    settled = [e["id"] for e in evs if e["event"] in ("done", "embedding")]
+    rejected = [e for e in evs if e["event"] == "rejected"]
+    if run["rc"] != 0 or sorted(settled) != sorted(ids) or rejected:
+        bad.append(f"fleet: rc {run['rc']}, settled {settled}, rejected "
+                   f"{rejected}")
+    streams: dict = {}
+    arrivals: dict = {}
+    for (t, ln), e in zip(run["lines"], evs):
+        if e.get("event") == "token":
+            streams.setdefault(e["id"], {})[e["index"]] = e["token"]
+            arrivals.setdefault(e["id"], []).append(t)
+    wires = {w["id"]: w for w in fleet_requests()}
+    unequal = [i for i, want in refs.items()
+               if not stream_check(streams.get(i, {}), want,
+                                   first_generated(wires[i]))]
+    if unequal:
+        bad.append(f"fleet streams differ from sample_fast: {unequal}")
+    if streams.get("g0") != streams.get("g0tcp"):
+        bad.append("g0 over the unix socket differs from g0tcp over TCP")
+    routes = run["routes"]
+    resumed = [r for r in routes if r["status"] == "handoff"
+               and r.get("resumed")]
+    down = [r for r in routes if r["status"] == "replica_down"]
+    if not resumed or not down:
+        bad.append(f"no resumed handoff in the router's records: {routes}")
+    embs = [e for e in evs if e["event"] == "embedding"]
+    emb = embs[0] if embs else None
+    d_emb = None if emb is None else float(
+        np.abs(np.array(emb["values"]) - embed_vec).max())
+    if d_emb is None or not d_emb <= 1e-6:  # the line rounds to 6 places
+        bad.append(f"the fleet's embedding differs by {d_emb}")
+    hops = {}
+    for r in routes:
+        if r["status"] == "dispatched":
+            hops.setdefault(r["req"], []).append(r["replica"])
+    if hops.get("g0") != [0] or hops.get("g0tcp") != [1]:
+        bad.append(f"g0 and g0tcp did not take r0 (unix) and r1 (TCP) "
+                   f"alone: {hops}")
+    # the client's view of the handoff: the longest gap between two
+    # tokens of a stream the dead replica was streaming
+    cut = [i for i, h in hops.items() if len(h) > 1 and i in arrivals
+           and len(arrivals[i]) > 1]
+    gap = max((max(np.diff(arrivals[i])) for i in cut), default=None)
+    handoff_s = (resumed[-1]["ts"] - down[0]["ts"]) if resumed and down \
+        else None
+    return bad, dict(settled=len(settled), hops=hops,
+                     handed_off=[r["req"] for r in resumed],
+                     handoff_fold_s=handoff_s, stream_gap_s=gap,
+                     streams_equal=len(refs) - len(unequal),
+                     g0_tcp_hops=hops.get("g0tcp"), embed_distance=d_emb,
+                     tokens=sum(len(s) for s in streams.values()))
+
+
+def replica_launches(prom: Path) -> dict:
+    """Kernel id -> launches, from a cli.serve exposition's
+    progen_serve_kernel_launches_<id> gauges (None where absent)."""
+    from progen_tpu_torch.ops.launches import WRAPPERS, gauge_name
+
+    text = log_text(prom)
+    out = {}
+    for rid in WRAPPERS:
+        m = re.search(rf"^progen_serve_{gauge_name(rid)} (\S+)$", text,
+                      re.M)
+        out[rid] = None if m is None else int(float(m.group(1)))
+    return out
+
+
+def client_session(sock_path: str, lines, until, timeout=300.0) -> list:
+    """Talk to a replica's unix socket as a client: send ``lines`` (a
+    list of (condition, line): each is sent once its condition holds on
+    the events so far), read events until ``until(events)``."""
+    from progen_tpu_torch.fleet.transport import LineConnection
+
+    s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    s.connect(sock_path)
+    conn = LineConnection(s)
+    events, todo = [], list(lines)
+    deadline = time.monotonic() + timeout
+    try:
+        while not until(events):
+            while todo and todo[0][0](events):
+                conn.send_line(todo.pop(0)[1])
+            if select.select([conn], [], [], 0.05)[0]:
+                got, eof = conn.recv_lines()
+                events += [json.loads(ln) for ln in got]
+                if eof:
+                    raise AssertionError(f"replica closed the session: "
+                                         f"{events[-3:]}")
+            if time.monotonic() > deadline:
+                raise AssertionError(f"client session timed out: "
+                                     f"{events[-3:]}")
+    finally:
+        conn.close()
+    return events
+
+
+def reload_under_traffic(r0, work: Path, name_b: str, refs_b) -> tuple:
+    """SIGHUP r0 while it serves two requests, send two more once it
+    says it serves B; (bad, summary). ``refs_b(wire)`` is sample_fast
+    under B."""
+    log = work / "r0" / "stderr.log"
+    before = [{"id": f"h{i}", "prime": PROTEINS[i][20:36], "length": 17
+               + RELOAD_NEW, "seed": 400 + i} for i in range(2)]
+    after = [{"id": f"a{i}", "prime": PROTEINS[i + 2][20:36], "length": 17
+              + RELOAD_NEW, "seed": 410 + i} for i in range(2)]
+    committed = f"reload: now serving {name_b}"
+    state = {"hup": None, "commit": None}
+
+    def committed_yet(events):
+        """SIGHUP once the first token streamed; True once the commit
+        line is in r0's log."""
+        if state["hup"] is None and any(e["event"] == "token"
+                                        for e in events):
+            os.kill(r0.pid, signal.SIGHUP)
+            state["hup"] = time.monotonic()
+        if state["commit"] is None and committed in log_text(log):
+            state["commit"] = time.monotonic()
+        return state["commit"] is not None
+
+    t = time.perf_counter()
+    events = client_session(
+        str(work / "r0" / "serve.sock"),
+        [(lambda ev: True, json.dumps(w)) for w in before]
+        + [(committed_yet, json.dumps(w)) for w in after],
+        until=lambda ev: committed_yet(ev) and len(
+            [e for e in ev if e["event"] == "done"]) == 4)
+    seconds = time.perf_counter() - t
+    bad = []
+    done = sorted(e["id"] for e in events if e["event"] == "done")
+    text = log_text(log)
+    if done != ["a0", "a1", "h0", "h1"] or any(
+            e["event"] == "rejected" for e in events) or \
+            "reload: rejected" in text or committed not in text:
+        bad.append(f"reload: done {done}, log {text[-1500:]}")
+    streams: dict = {}
+    for e in events:
+        if e["event"] == "token":
+            streams.setdefault(e["id"], {})[e["index"]] = e["token"]
+    unequal = [w["id"] for w in after
+               if not stream_check(streams.get(w["id"], {}), refs_b(w),
+                                   first_generated(w))]
+    if unequal:
+        bad.append(f"after the commit, {unequal} differ from sample_fast "
+                   "under the new weights")
+    m = re.search(r"now serving \S+ \(load \+ commit (\S+) s\)", text)
+    return bad, dict(session_s=seconds, load_and_commit_s=float(
+        m.group(1)) if m else None, hup_to_commit_s=(
+        state["commit"] - state["hup"]) if state["commit"] else None,
+        after_commit_equal=len(after) - len(unequal))
+
+
+def spawn_fleet(work: Path, ck: Path, device: str) -> dict:
+    """Start cli.router --spawn 2 --respawn, its replicas watching their
+    pins (--replica_reload_watch 1), stdin held open."""
+    lines = []
+    router = subprocess.Popen(
+        [sys.executable, "-m", "progen_tpu_torch.cli.router", "--spawn",
+         "2", "--respawn", "--device", device, "--checkpoint_path", str(ck),
+         "--fleet_dir", str(work / "fleet"), "--replica-max-slots", "1",
+         "--max-len", str(FLEET_MAX_LEN), "--replica_reload_watch", "1"],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=open(work / "spawn_router.log", "ab"), text=True, cwd=work,
+        env=dict(os.environ, PYTHONPATH=str(REPO)))
+    return dict(proc=router, lines=lines, t0=time.perf_counter(),
+                reader=start_reader(router.stdout, lines))
+
+
+def respawn_and_pin(work: Path, spawned: dict, name_a: str) -> tuple:
+    """The spawned fleet of ``spawn_fleet``: SIGKILL replica0 and wait
+    for its replay, pin replica1 to the older checkpoint A and wait for
+    the ack, then 2 requests and EOF; (bad, summary)."""
+    fleet, lines, router = work / "fleet", spawned["lines"], spawned["proc"]
+    t = spawned["t0"]
+    rlog = work / "spawn_router.log"
+    try:
+        for i in range(2):
+            wait_for(lambda i=i: "listening on" in log_text(
+                fleet / f"replica{i}" / "replica.log"),
+                f"spawned replica{i} listens", [router])
+        boot_s = time.perf_counter() - t
+        pid = int(re.search(r"replica0: pid (\d+)", log_text(rlog))[1])
+        t_kill = time.perf_counter()
+        os.kill(pid, signal.SIGKILL)
+        wait_for(lambda: "replay: resumed" in log_text(
+            fleet / "replica0" / "replica.log"), "replica0's replay",
+            [router])
+        wait_for(lambda: log_text(fleet / "replica0" / "replica.log")
+                 .count("listening on") >= 2, "replica0 listens again",
+                 [router])
+        respawn_s = time.perf_counter() - t_kill
+        ack = fleet / "replica1" / "reload.pin.ack"
+        t_pin = time.perf_counter()
+        (fleet / "replica1" / "reload.pin").write_text(name_a + "\n")
+        got = wait_for(lambda: ack.exists() and json.loads(
+            ack.read_text()), "the pin's ack", [router])
+        pin_s = time.perf_counter() - t_pin
+        router.stdin.write("".join(json.dumps({
+            "id": f"s{i}", "prime": PROTEINS[i][:10],
+            "length": 11 + RESPAWN_NEW, "seed": 500 + i}) + "\n"
+            for i in range(2)))
+        router.stdin.close()
+        rc = router.wait(timeout=300)
+        spawned["reader"].join(60)
+    finally:
+        if router.poll() is None:
+            router.terminate()  # a drain: it stops its replicas
+            router.wait(60)
+    evs = events_of(lines)
+    done = sorted(e["id"] for e in evs if e["event"] == "done")
+    bad = []
+    if rc != 0 or done != ["s0", "s1"]:
+        bad.append(f"respawn run: rc {rc}, done {done}: "
+                   f"{log_text(rlog)[-1500:]}")
+    if got.get("pin") != name_a or got.get("status") != "committed":
+        bad.append(f"the pin to {name_a} was acked {got}")
+    text = log_text(rlog)
+    if "replica0: exited rc=-9" not in text or \
+            "replica0: pid" not in text.split("exited rc=-9", 1)[-1]:
+        bad.append(f"replica0 was not respawned: {text[-1500:]}")
+    return bad, dict(boot_s=boot_s, respawn_s=respawn_s, pin_ack_s=pin_s,
+                     ack=got, seconds=time.perf_counter() - t)
+
+
+def reload_in_process(model, ck: Path, name_a: str, sd_a: dict) -> tuple:
+    """WeightReloader on a base engine (4 slots) while it decodes, from
+    B to the older A by name: the pool's step interval while the load
+    stages against without, the peak bytes the staging adds, the live
+    parameters' addresses across the commit; (bad, summary)."""
+    from progen_tpu_torch.data.tokenizer import encode_tokens
+    from progen_tpu_torch.serving import (
+        Request,
+        Scheduler,
+        ServeEngine,
+        WeightReloader,
+    )
+
+    engine = ServeEngine(model, max_slots=4, max_len=FLEET_MAX_LEN)
+    sched = Scheduler(engine)
+    for i in range(4):
+        sched.submit(Request(id=f"p{i}", prime=encode_tokens(
+            PROTEINS[i][:12]).astype(np.int64), length=FLEET_MAX_LEN,
+            top_k=None, add_bos=False, seed=600 + i))
+
+    def timed_step():
+        t = time.perf_counter()
+        sched.step()  # ends in the host copy of the sampled tokens
+        return time.perf_counter() - t
+
+    for _ in range(4):
+        timed_step()
+    idle = [timed_step() for _ in range(INPROC_STEPS)]
+    ptrs = {k: v.data_ptr() for k, v in model.state_dict().items()}
+    cuda = model.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    reloader = WeightReloader(engine, str(ck), metrics=sched.metrics)
+    reloader.request_reload(path=name_a)
+    staging = []
+    while reloader.loading and sched.has_work:
+        staging.append(timed_step())
+    reloader.join(300)
+    name = reloader.maybe_commit()
+    peak = None
+    if cuda:
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+    after = [timed_step() for _ in range(4)]  # the pool goes on
+    bad = []
+    if name != name_a:
+        bad.append(f"in-process reload committed {name}: "
+                   f"{reloader.last_error}")
+    moved = [k for k, v in model.state_dict().items()
+             if v.data_ptr() != ptrs[k]]
+    if moved:
+        bad.append(f"the commit moved {moved[:3]}")
+    wrong = [k for k, v in model.state_dict().items()
+             if not torch.equal(v.cpu(), sd_a[k])]
+    if wrong:
+        bad.append(f"after the commit {wrong[:3]} differ from A's")
+    snap = sched.metrics.snapshot()
+    return bad, dict(
+        reload_duration_s=reloader.last_duration_s,
+        step_ms_p50_idle=float(np.median(idle)) * 1e3,
+        step_ms_max_idle=max(idle) * 1e3,
+        step_ms_p50_staging=float(np.median(staging)) * 1e3
+        if staging else None,
+        step_ms_max_staging=max(staging) * 1e3 if staging else None,
+        steps_while_staging=len(staging),
+        step_ms_p50_after=float(np.median(after)) * 1e3,
+        staging_peak_bytes=peak,
+        param_bytes=sum(v.nbytes for v in model.state_dict().values()),
+        addresses_kept=not moved, reloads=snap.get("reloads"))
+
+
+def phase_fleet(cfg, card: str, device: str = "cuda") -> dict:
+    """Phase 13 (see the module docstring). ``device`` "cpu" rehearses
+    it at a small config on the host (its launch check then fails: the
+    plain versions count nothing)."""
+    import shutil
+    import threading
+
+    from progen_tpu_torch import ProGen
+    from progen_tpu_torch.serving import ServeEngine
+
+    t_phase = time.perf_counter()
+    work = REPO / "build" / "chip_smoke_fleet"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ck, children, parts, bad = work / "ck", [], {}, []
+    try:
+        t = time.perf_counter()
+        model = ProGen(cfg, device=device, seed=0).eval()
+        name_a = save_params(ck, model)
+        sd_a = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        parts["save_a"] = time.perf_counter() - t
+        t_boot = time.perf_counter()
+        r0 = spawn_serve(ck, work / "r0", device, "--socket",
+                         str(work / "r0" / "serve.sock"))
+        r1 = spawn_serve(ck, work / "r1", device, "--tcp", "127.0.0.1:0",
+                         env=dict(PROGEN_FLEET_TOKEN=FLEET_TOKEN,
+                                  PROGEN_CHAOS="serve/decode:kill@"
+                                  f"{FLEET_KILL}"))
+        children += [r0, r1]
+        wires = {w["id"]: w for w in fleet_requests()}
+        refs: dict = {}
+
+        def references():
+            for rid, w in wires.items():
+                if rid != "embed" and rid != "g0tcp":
+                    refs[rid] = fleet_reference(model, w)
+
+        ref_thread = threading.Thread(target=references)
+        ref_thread.start()  # the card is shared: the children are host-bound
+        ends = [wait_for(lambda: listening(work / r), f"{r} listens",
+                         [r0, r1]) for r in ("r0", "r1")]
+        parts["boot"] = time.perf_counter() - t_boot
+        t = time.perf_counter()
+        model_b = copy.deepcopy(model)  # B: A and seeded noise
+        gen = torch.Generator(device=device).manual_seed(1)
+        with torch.no_grad():
+            for prm in model_b.parameters():
+                prm.add_(torch.randn(prm.shape, generator=gen,
+                                     device=device) * 0.02)
+        name_b = save_params(ck, model_b)  # after the replicas chose A
+        parts["save_b"] = time.perf_counter() - t
+        run = fleet_run(work, ck, ends[0], ends[1])
+        parts["fleet_run"] = run["seconds"]
+        ref_thread.join()
+        refs["g0tcp"] = refs["g0"]
+        if r1.wait(timeout=60) != -signal.SIGKILL:
+            bad.append(f"r1 exited {r1.returncode}, not by its chaos kill")
+        reset_counts()  # the check's embedding, not the fleet's path
+        engine = ServeEngine(model, max_slots=1)
+        embed_vec = engine.embed(parsed_request(wires["embed"]).prime,
+                                 add_bos=True)
+        check_launches = launch_counts()
+        if check_launches != per_forward(cfg):
+            bad.append(f"the check's embed launched {check_launches}, "
+                       f"not {per_forward(cfg)}")
+        fleet_bad, fleet = check_fleet_run(run, refs, embed_vec)
+        bad += fleet_bad
+
+        # the spawned fleet boots (on B, the newest) beside the reload
+        spawned = spawn_fleet(work, ck, device)
+        children.append(spawned["proc"])
+        t = time.perf_counter()
+        model.load_state_dict(model_b.state_dict())
+        del model_b
+
+        def refs_b(wire):
+            return fleet_reference(model, wire)
+
+        reload_bad, reload = reload_under_traffic(r0, work, name_b, refs_b)
+        bad += reload_bad
+        r0.terminate()
+        if r0.wait(timeout=120) != 0:
+            bad.append(f"r0 exited {r0.returncode} on SIGTERM")
+        # the path's launches: the replica that answered the embed
+        # counted them in its own process and wrote them into its
+        # exposition (at exit, for r0); it served no other forward
+        answered = f"r{fleet['hops'].get('embed', [None])[-1]}"
+        launches = replica_launches(work / answered / "metrics.prom")
+        if launches != per_forward(cfg):
+            bad.append(f"{answered}, which answered the embed, launched "
+                       f"{launches}, not {per_forward(cfg)}")
+        parts["reload"] = time.perf_counter() - t
+        t = time.perf_counter()
+        respawn_bad, respawn = respawn_and_pin(work, spawned, name_a)
+        bad += respawn_bad
+        parts["respawn"] = time.perf_counter() - t
+        t = time.perf_counter()
+        inproc_bad, inproc = reload_in_process(model, ck, name_a, sd_a)
+        bad += inproc_bad
+        parts["in_process"] = time.perf_counter() - t
+        journals = {r: sum(1 for ln in log_text(work / r / "journal.jsonl")
+                           .splitlines() if '"handed_off"' in ln)
+                    for r in ("r0", "r1")}
+    except BaseException:
+        for log in sorted(work.rglob("*.log")):  # the children's side
+            print(f"--- {log.relative_to(work)}:\n"
+                  f"{log_text(log)[-2000:]}", flush=True)
+        raise
+    finally:
+        for p in children:  # a router's drain stops the replicas it spawned
+            if p.poll() is None:
+                p.terminate()
+                try:
+                    p.wait(60)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    out = dict(card=card, config="configs/model/base.toml",
+               num_params=cfg.num_params(), requests=len(wires),
+               new_tokens=FLEET_NEW, slots=1, kill_at=FLEET_KILL,
+               fleet=fleet, handed_off_marks=journals, reload=reload,
+               respawn=respawn, in_process=inproc, launches=launches,
+               embed_answered_by=answered, check_launches=check_launches,
+               parts_s=parts, seconds=time.perf_counter() - t_phase,
+               budget_s=150)
+    line("fleet", **out)
+    if bad:
+        raise AssertionError("fleet: " + "; ".join(bad))
+    return out
 
 
 def check_training(run: dict) -> None:
@@ -4027,6 +4715,7 @@ def main() -> int:
         dataclasses.replace(cfg, depth=WL_DEPTH), result["score"], card)
     result["grid"] = phase_grid(cfg, card, build["tensor_core_kernels"])
     result["resilience"] = phase_resilience(cfg, card, result)
+    result["fleet"] = phase_fleet(cfg, card)
 
     # each kernel's launches, summed over the paths driven with counts:
     # scoring + generation, the 3 train steps, the A3 step, the seqpar
@@ -4034,8 +4723,9 @@ def main() -> int:
     # comparison there is left out), the CLIs' steps and evals, the
     # serving engine's run, the workloads' scorer, scans and n = w
     # scorer (their child processes count apart and are left out), and
-    # the grid ranks' steps (single-process comparisons left out) and the
-    # resumed cli.train
+    # the grid ranks' steps (single-process comparisons left out), the
+    # resumed cli.train, and the fleet replica's embed forward (counted in
+    # its own process, read from its exposition)
     paths = dict(inference=run["launches"], train=train["launches"],
                  halo_step=result["halo_step"]["launches"],
                  seqpar=result["seqpar"]["launches"],
@@ -4043,7 +4733,8 @@ def main() -> int:
                  serve=result["serve"]["launches"],
                  workloads=result["workloads"]["launches"],
                  grid=result["grid"]["launches"],
-                 resilience=result["resilience"]["launches"])
+                 resilience=result["resilience"]["launches"],
+                 fleet=result["fleet"]["launches"])
     counts = {k: sum(c[k] for c in paths.values()) for k in run["launches"]}
     line("launches", **paths, total=counts)
     if not all(counts.values()):

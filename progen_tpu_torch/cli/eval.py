@@ -35,10 +35,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def load_model(checkpoint_path: str, dev):
-    """(model, package) from the newest checkpoint's parameters."""
+def load_model(checkpoint_path: str, dev, at=None):
+    """(model, package) from the newest checkpoint's parameters, or from
+    the one ``at`` names (a ``ckpt_N``); None when ``at`` is given and
+    does not restore."""
     _, get_last, _ = get_checkpoint_fns(checkpoint_path)
-    pkg = get_last.restore_params(device=dev)
+    pkg = get_last.restore_params(at=at, device=dev)
+    if pkg is None and at is not None:
+        return None
     if pkg is None:
         raise SystemExit(f"no checkpoints found at {checkpoint_path}")
     model = ProGen(ProGenConfig.from_dict(pkg.model_config), device=dev,

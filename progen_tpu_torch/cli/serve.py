@@ -1,9 +1,9 @@
 """Serving CLI: the continuous-batching engine loop against a checkpoint,
-the JAX package's ``cli/serve.py`` on its stdin/stdout transport.
+the port of the JAX package's ``cli/serve.py``.
 
 Runs the slot-pool engine (``progen_tpu_torch/serving/``) as a
-single-threaded event loop. Requests arrive on stdin as JSON lines, one
-object a request:
+single-threaded event loop. Requests arrive as JSON lines, one object a
+request:
 
     {"id": "r1", "prime": "[tax=Mammalia] #", "length": 256,
      "temperature": 0.8, "top_p": 0.95, "top_k": 25, "seed": 7}
@@ -13,7 +13,8 @@ knobs and ``seed`` to their flags.) The resume wire adds three optional
 fields: ``prime_tokens`` (raw token ids, bypassing the tokenizer),
 ``draw_offset`` (the first draw of the seed's stream, default 0) and
 ``add_bos`` (default true); with them a request continues another
-process's stream exactly. Two protein-design shapes ride the same wire:
+process's stream exactly (the router's handoff sends them). Two
+protein-design shapes ride the same wire:
 
     {"id": "f1", "template": "MK?LV??G", "free_char": "?", ...}
     {"id": "e1", "prime": "[tax=Mammalia] # MKLV", "embed": true}
@@ -23,8 +24,8 @@ frozen characters are kept, ``free_char`` positions are sampled; the
 leading frozen run becomes the prime and the template's width the
 length (the resume wire may carry buffer-aligned ``template_tokens`` and
 ``frozen`` lists instead). ``embed: true`` asks for the mean-pooled
-final-norm embedding of the prime. Responses stream to stdout as JSON
-lines, interleaved across requests as the engine produces them:
+final-norm embedding of the prime. Responses stream back as JSON lines,
+interleaved across requests as the engine produces them:
 
     {"event": "token", "id": "r1", "token": 77, "text": "L", "index": 18}
     {"event": "done", "id": "r1", "text": "...", "n_generated": 238,
@@ -33,21 +34,50 @@ lines, interleaved across requests as the engine produces them:
      "latency_s": 0.02}
     {"event": "rejected", "id": "r9", "reason": "queue_full"}
 
-EOF on stdin drains the queue and exits. The first SIGTERM or SIGINT
-closes intake, sheds the queue (``rejected: draining``) and lets the
-slots finish; a second exits at once. ``--journal_dir DIR`` journals
-accepted requests and emitted tokens to DIR/journal.jsonl, and a later
-``--replay DIR`` resumes every unfinished accepted request with its
-uninterrupted stream (a slot's draw t is ``draw_seed(seed, t)``, so the
-journal carries a draw offset, not a key). ``--int8`` serves int8
+Three transports, one protocol:
+  * default: requests on stdin, events on stdout (EOF drains the queue
+    and exits);
+  * ``--socket PATH``: a unix-socket server; each connection submits
+    requests and receives exactly its own events;
+  * ``--tcp HOST:PORT``: the same over framed TCP (``fleet/transport.py``:
+    every frame's payload is exactly one of these lines, so streams are
+    the same as over the unix socket, and the journal, replay and
+    handoff work unchanged). PORT 0 binds an ephemeral port, printed on
+    stderr as "listening on tcp HOST:PORT"; ``--idle_timeout`` drops a
+    peer silent for longer.
+
+The connection transports also answer a control line,
+``{"ctl": "release", "id": ...}``: the router asking this replica to
+give back one still-queued request (``{"event": "released", "id": ...,
+"released": true|false}``; a granted release is journaled
+``done(handed_off)``, so --replay skips it).
+
+The first SIGTERM or SIGINT closes intake, sheds the queue
+(``rejected: draining``) and lets the slots finish; a second exits at
+once. SIGHUP loads the newest verified checkpoint on a background
+thread and copies it into the served model between two decode steps
+(``serving/reload.py``; "reload: now serving ckpt_N" on stderr), with
+no request dropped; ``--reload_watch N`` polls the checkpoint directory
+every N seconds and reloads a newer checkpoint by itself;
+``--reload_pin FILE`` names the checkpoint to serve (restored at start,
+loaded by the poll, answered through FILE.ack). ``--journal_dir DIR``
+journals accepted requests and emitted tokens to DIR/journal.jsonl, and
+a later ``--replay DIR`` resumes every unfinished accepted request with
+its uninterrupted stream (a slot's draw t is ``draw_seed(seed, t)``, so
+the journal carries a draw offset, not a key). ``--int8`` serves int8
 weight-quantised matrix products and prints the calibration line
 "int8 weights: ..." to stderr. ``PROGEN_CHAOS`` arms the fault sites
-(``serve/prefill``, ``serve/prefill_chunk``, ``serve/decode``).
-``--prom_file`` writes the metrics' Prometheus exposition (prefix
-``progen_serve_``; on the ``--metrics-every`` cadence and at exit, and at
-least every ``--heartbeat`` seconds when set), ``--prom_port`` serves it
-over HTTP on localhost. The flags of the JAX CLI that are not ported yet
-are refused with the ROADMAP item that carries them.
+(``serve/prefill``, ``serve/prefill_chunk``, ``serve/decode``,
+``serve/reload``, ``serve/reload_commit``, ``transport/accept``,
+``transport/frame``). ``--prom_file`` writes the metrics' Prometheus
+exposition (prefix ``progen_serve_``; on the ``--metrics-every``
+cadence and at exit, and at least every ``--heartbeat`` seconds when
+set), with the process's own kernel launches as
+``progen_serve_kernel_launches_<id>`` gauges (the embed forwards' A1,
+L1 and L2 on the card; the plain versions on the CPU count none);
+``--prom_port`` serves it over HTTP on localhost. The flags of the
+JAX CLI that are not ported yet are refused with the ROADMAP item that
+carries them.
 
 Run: python -m progen_tpu_torch.cli.serve --checkpoint_path ./ckpts
 """
@@ -59,6 +89,7 @@ import json
 import os
 import select
 import signal
+import socket
 import sys
 import time
 
@@ -67,6 +98,12 @@ import numpy as np
 from progen_tpu_torch._device import resolve_device
 from progen_tpu_torch.cli.eval import load_model
 from progen_tpu_torch.data.tokenizer import decode_tokens, encode_tokens
+from progen_tpu_torch.fleet.transport import (
+    FramedListener,
+    UnixListener,
+    parse_hostport,
+)
+from progen_tpu_torch.ops import launches
 from progen_tpu_torch.resilience.chaos import install_from_env
 from progen_tpu_torch.serving import (
     PrefixCache,
@@ -74,6 +111,7 @@ from progen_tpu_torch.serving import (
     RequestJournal,
     Scheduler,
     ServeEngine,
+    WeightReloader,
     replay_into,
 )
 from progen_tpu_torch.telemetry import (
@@ -88,15 +126,10 @@ from progen_tpu_torch.workloads.infill import (
     parse_template,
 )
 
-_ITEM_2 = "ROADMAP queue 1 item 2 (the serving fleet's data plane)"
 _ITEM_3 = "ROADMAP queue 1 item 3 (the telemetry back end and the flight " \
     "recorder)"
-NOT_PORTED = {
-    "--socket": _ITEM_2, "--tcp": _ITEM_2, "--idle_timeout": _ITEM_2,
-    "--reload_watch": _ITEM_2, "--reload_pin": _ITEM_2,
-    "--flight_dir": _ITEM_3, "--profile_pin": _ITEM_3,
-    "--profile_out": _ITEM_3,
-}
+NOT_PORTED = {"--flight_dir": _ITEM_3, "--profile_pin": _ITEM_3,
+              "--profile_out": _ITEM_3}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -160,6 +193,26 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "cadence). A collector reading the exposition's "
                         "mtime as liveness sees an idle but healthy "
                         "server as alive")
+    p.add_argument("--socket", dest="socket_path", default=None,
+                   help="serve a unix-socket server at PATH instead of "
+                        "stdin/stdout")
+    p.add_argument("--tcp", dest="tcp_hostport", default=None,
+                   help="serve framed TCP at HOST:PORT (the fleet "
+                        "transport; PORT 0 = ephemeral, the bound port is "
+                        "printed on stderr)")
+    p.add_argument("--idle_timeout", default=0.0, type=float,
+                   help="drop a --tcp peer silent for more than N seconds "
+                        "(0 = never)")
+    p.add_argument("--reload_watch", default=0.0, type=float,
+                   help="poll the checkpoint directory every N seconds and "
+                        "hot-reload a newer complete checkpoint (0 = off; "
+                        "SIGHUP always reloads)")
+    p.add_argument("--reload_pin", dest="reload_pin_path", default=None,
+                   help="pin control file: when it names a checkpoint, the "
+                        "poll loads exactly that one (newest-wins "
+                        "suspended) and answers through FILE.ack; at start "
+                        "a pinned checkpoint is restored directly. Implies "
+                        "--reload_watch 2 when that is unset")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     for flag in NOT_PORTED:
         p.add_argument(flag, nargs="?", const=True, default=None,
@@ -355,19 +408,176 @@ def serve_stdio(sched, defaults: dict, starts: dict, shutdown: dict,
                           "reason": reason}) for req, reason in shed])
 
 
+def _shed_lines(sched, starts: dict, owners: dict) -> list:
+    """The requests the scheduler shed (deadlines, the drain) as
+    (connection, rejected line) pairs for their owners."""
+    out = []
+    for req, reason in sched.pop_expired():
+        starts.pop(req.id, None)
+        cid, public = owners.pop(req.id, (None, None))
+        if cid is not None:
+            out.append((cid, json.dumps({"event": "rejected", "id": public,
+                                         "reason": reason})))
+    return out
+
+
+def _handle_client_line(sched, line: str, defaults: dict, cid: int,
+                        owners: dict, starts: dict, send) -> None:
+    """One line from a connection: a release control line or a request.
+    Request ids are namespaced by connection (``{cid}:{id}``), so two
+    clients may both call their request "1"."""
+    try:
+        ctl = json.loads(line)
+    except ValueError:
+        ctl = None
+    if isinstance(ctl, dict) and ctl.get("ctl") == "release":
+        public = str(ctl.get("id"))
+        internal = f"{cid}:{public}"
+        released = sched.release(internal)
+        if released:
+            owners.pop(internal, None)
+            starts.pop(internal, None)
+        send(cid, [json.dumps({"event": "released", "id": public,
+                               "released": released})])
+        return
+    req, err = parse_request(line, defaults)
+    public = None if req is None else req.id
+    if err is None:
+        req.id = f"{cid}:{public}"
+        ok, err = sched.submit(req)
+        if ok:
+            owners[req.id] = (cid, public)
+            starts[req.id] = _start(req)
+            return
+    send(cid, [json.dumps({"event": "rejected", "id": public,
+                           "reason": err})])
+
+
+def serve_connections(sched, defaults: dict, listener, shutdown: dict,
+                      publish, metrics_every: int, tick=None) -> None:
+    """The connection transports' loop: one select over the listener and
+    its clients between decode steps; every client receives exactly its
+    own events. On a drain signal the listener closes (new connections
+    are refused), the queue is shed and the slots finish streaming to
+    their clients; then the loop ends."""
+    clients: dict = {}  # connection id -> connection
+    owners: dict = {}  # internal request id -> (connection id, public id)
+    starts: dict = {}
+    conn_ids = iter(range(1, 1 << 62))  # never reused, unlike fds
+    steps = 0
+
+    def drop(cid):
+        conn = clients.pop(cid, None)
+        if conn is not None:
+            conn.close()
+
+    def send(cid, lines):
+        conn = clients.get(cid)
+        if conn is None:
+            return
+        try:
+            for ln in lines:
+                conn.send_line(ln)
+        except OSError:
+            drop(cid)
+
+    drained = False
+    try:
+        while True:
+            if tick is not None:
+                tick()
+            for cid, conn in list(clients.items()):
+                if conn.idle_expired():
+                    drop(cid)
+            if shutdown["flag"]:
+                if not drained:
+                    drained = True
+                    listener.close()
+                    sched.drain_queue()
+                    for cid, ln in _shed_lines(sched, starts, owners):
+                        send(cid, [ln])
+                if not sched.has_work:
+                    break
+            rlist = ([] if drained else [listener]) + list(clients.values())
+            try:
+                ready = select.select(
+                    rlist, [], [], 0.0 if sched.has_work else 0.2)[0]
+            except OSError:
+                continue  # a peer vanished between the list and select
+            for obj in ready:
+                if obj is listener:
+                    conn = listener.accept()
+                    if conn is not None:
+                        conn.cid = next(conn_ids)
+                        clients[conn.cid] = conn
+                    continue
+                if obj.sock is None:
+                    continue  # dropped earlier in this turn
+                lines, eof = obj.recv_lines()
+                for line in lines:
+                    if line.strip():
+                        _handle_client_line(sched, line, defaults, obj.cid,
+                                            owners, starts, send)
+                if eof:
+                    drop(obj.cid)
+            if sched.has_work:
+                events, comps = sched.step()
+                for cid, ln in _shed_lines(sched, starts, owners):
+                    send(cid, [ln])
+                for ev in events:
+                    cid, public = owners.get(ev.request_id, (None, None))
+                    if cid is not None:
+                        ev.request_id = public
+                        send(cid, event_lines([ev], [], {}))
+                for c in comps:
+                    cid, public = owners.pop(c.request_id, (None, None))
+                    start = starts.pop(c.request_id, 0)
+                    if cid is not None:
+                        c.request_id = public
+                        send(cid, event_lines([], [c], {public: start}))
+                steps += 1
+                if metrics_every and steps % metrics_every == 0:
+                    publish(steps)
+    finally:
+        for cid in list(clients):
+            drop(cid)
+        listener.close()
+
+
+def _load(args, dev, pin):
+    """(model, package): the pinned checkpoint when ``pin`` restores,
+    else the newest. An unloadable pin falls back to the newest (the
+    replica must come up serving something); the reloader's startup ack
+    tells the pin's writer it was not honoured."""
+    if pin is not None:
+        loaded = load_model(args.checkpoint_path, dev, at=pin)
+        if loaded is not None:
+            return loaded
+        print(f"reload pin {pin}: not restorable, falling back to the "
+              "newest checkpoint", file=sys.stderr)
+    return load_model(args.checkpoint_path, dev)
+
+
 def run(argv=None) -> dict:
-    """Serve until stdin closes (or a drain signal) and the work is done;
-    returns the final metrics snapshot."""
+    """Serve until intake closes (EOF on stdin, or a drain signal) and the
+    work is done; returns the final metrics snapshot."""
     args = parse_args(argv)
     dev = resolve_device(args.device)
-    # the serving fault sites (serve/prefill, serve/prefill_chunk,
-    # serve/decode) arm from the environment alone
+    # the serving fault sites arm from the environment alone
     install_from_env()
     t0 = time.perf_counter()
     journal = (RequestJournal(os.path.join(args.journal_dir,
                                            "journal.jsonl"))
                if args.journal_dir else None)
-    model, pkg = load_model(args.checkpoint_path, dev)
+    startup_pin, reload_watch = None, args.reload_watch
+    if args.reload_pin_path:
+        reload_watch = reload_watch or 2.0  # a pin nobody polls is dead
+        try:
+            with open(args.reload_pin_path) as f:
+                startup_pin = f.read().strip() or None
+        except OSError:
+            startup_pin = None
+    model, pkg = _load(args, dev, startup_pin)
     seq_len = model.config.seq_len
     engine = ServeEngine(model, max_slots=args.max_slots,
                          max_len=min(args.max_len or seq_len, seq_len),
@@ -397,18 +607,50 @@ def run(argv=None) -> dict:
     beat = {"last": time.monotonic()}
 
     def publish(step=None):
+        # the process's own kernel launches (the embed forwards'), so a
+        # scrape shows which kernels this replica's work went through
+        for rid, n in launches.launch_counts().items():
+            sched.metrics.set_gauge(launches.gauge_name(rid), n)
         sched.metrics.log_to(tracker, step=step)
         if args.prom_file:
             write_prometheus(args.prom_file, prometheus_text(sched.metrics))
             beat["last"] = time.monotonic()
 
+    # hot reload: SIGHUP (or the --reload_watch poll) stages a checkpoint
+    # on a background thread; tick() commits it between decode steps
+    ckpt_name = os.path.basename(pkg.path)
+    reloader = WeightReloader(engine, args.checkpoint_path,
+                              metrics=sched.metrics, current=ckpt_name,
+                              pin_path=args.reload_pin_path)
+    # answer a pin file that predates this process now: committed when
+    # it was restored, rejected when the start fell back
+    reloader.note_startup_pin()
+    reload_req = {"flag": False}
+
     def tick():
+        """Once a loop turn, between decode steps."""
         # an exposition rewrite only (no tracker row): the file's mtime
         # stays fresh for a collector while the server idles
         if args.heartbeat and args.prom_file and \
                 time.monotonic() - beat["last"] >= args.heartbeat:
             write_prometheus(args.prom_file, prometheus_text(sched.metrics))
             beat["last"] = time.monotonic()
+        if reload_req["flag"]:
+            reload_req["flag"] = False
+            if reloader.request_reload():
+                print("reload: loading newest checkpoint in background",
+                      file=sys.stderr)
+        if reload_watch:
+            reloader.poll_watch(reload_watch)
+        name = reloader.maybe_commit()
+        if name is not None:
+            print(f"reload: now serving {name} (load + commit "
+                  f"{reloader.last_duration_s:.3f} s)", file=sys.stderr)
+            publish()
+        elif reloader.last_error is not None:
+            print(f"reload: rejected ({reloader.last_error}), still "
+                  f"serving {reloader.current}", file=sys.stderr)
+            reloader.last_error = None
 
     prom_srv = None
     if args.prom_port:
@@ -421,9 +663,8 @@ def run(argv=None) -> dict:
     preamble = _replay(sched, args.replay_dir, starts) \
         if args.replay_dir else []
     print(f"serving: max_slots={engine.max_slots} max_len={engine.max_len} "
-          f"max_queue={sched.max_queue} checkpoint="
-          f"{os.path.basename(pkg.path)} device={dev} loaded in "
-          f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
+          f"max_queue={sched.max_queue} checkpoint={ckpt_name} device={dev} "
+          f"loaded in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
 
     shutdown = {"flag": False}
 
@@ -437,12 +678,32 @@ def run(argv=None) -> dict:
         print(f"signal {signum}: draining: intake closed, finishing "
               "in-flight requests; signal again to kill", file=sys.stderr)
 
+    def request_reload(signum, frame):
+        reload_req["flag"] = True  # tick() does the work
+
     old = {s: signal.signal(s, request_drain)
            for s in (signal.SIGTERM, signal.SIGINT)}
+    old[signal.SIGHUP] = signal.signal(signal.SIGHUP, request_reload)
     t0 = time.perf_counter()
     try:
-        serve_stdio(sched, defaults, starts, shutdown, publish,
-                    args.metrics_every, preamble, tick=tick)
+        if args.tcp_hostport or args.socket_path:
+            if args.tcp_hostport:
+                listener = FramedListener(
+                    *parse_hostport(args.tcp_hostport),
+                    idle_timeout=args.idle_timeout)
+                where = f"tcp {listener.host}:{listener.port}"
+            else:
+                listener = UnixListener(args.socket_path)
+                where = args.socket_path
+            # the startup handshake: with PORT 0 the only place the port
+            # is told
+            print(f"listening on {where}", file=sys.stderr)
+            sys.stderr.flush()
+            serve_connections(sched, defaults, listener, shutdown, publish,
+                              args.metrics_every, tick=tick)
+        else:
+            serve_stdio(sched, defaults, starts, shutdown, publish,
+                        args.metrics_every, preamble, tick=tick)
     finally:
         for s, handler in old.items():
             signal.signal(s, handler)

@@ -43,7 +43,23 @@ The port's sites (``KNOWN_TARGETS``), named as the JAX package's:
   * ``serve/decode``        — the scheduler, once a decode step, before
                               the engine advances (``kill@N`` = die after
                               N-1 full steps);
-  * ``serve/embed``         — span entry of an embedding request.
+  * ``serve/embed``         — span entry of an embedding request;
+  * ``serve/reload``        — span entry of a hot reload's background
+                              load (``serving/reload.py``);
+  * ``serve/reload_commit`` — span entry of its commit between decode
+                              steps;
+  * ``router/handoff``      — span entry of the router's journal fold
+                              after a replica died (a transient fault
+                              there is retried: the fold is idempotent);
+  * ``router/connect``      — each dial of a replica (a fault opens the
+                              replica's circuit breaker);
+  * ``router/dispatch``     — each send of a request to a replica (a
+                              fault re-queues it on the backoff
+                              schedule);
+  * ``transport/accept``    — each accepted TCP connection
+                              (``fleet/transport.py``: dropped at once);
+  * ``transport/frame``     — each decoded frame (dropped, and its
+                              connection condemned).
 
 The JAX package's ``data/glob`` guards a ``gs://`` glob, which the port
 refuses (``data/dataset.py``), and its ``train/compile`` a compile the
@@ -73,7 +89,9 @@ from progen_tpu_torch.telemetry.registry import get_registry
 KNOWN_TARGETS = frozenset({
     # spans
     "ckpt/finalize", "ckpt/restore", "ckpt/save",
-    "serve/embed", "serve/prefill", "serve/prefill_chunk",
+    "router/handoff",
+    "serve/embed", "serve/prefill", "serve/prefill_chunk", "serve/reload",
+    "serve/reload_commit",
     "train/ckpt", "train/eval", "train/rollback", "train/sample",
     # retry-site labels (resilience/retry.py)
     "ckpt/io/meta_read", "ckpt/io/meta_write", "ckpt/io/restore",
@@ -81,7 +99,8 @@ KNOWN_TARGETS = frozenset({
     # perturb sites
     "train/loss",
     # direct maybe_inject sites
-    "score/batch", "serve/decode",
+    "router/connect", "router/dispatch", "score/batch", "serve/decode",
+    "transport/accept", "transport/frame",
 })
 
 _WARNED_UNKNOWN: set = set()

@@ -1,7 +1,7 @@
 """Continuous-batching serving: the slot-pool engine and its FIFO
-scheduler, with the request journal and the prefix cache; the port of
-the JAX package's ``serving/`` without the router and the weight
-reloader. See engine.py for the design. Typical use:
+scheduler, with the request journal, the prefix cache, the hot weight
+reloader and the failover router; the port of the JAX package's
+``serving/``. See engine.py for the design. Typical use:
 
     engine = ServeEngine(model, max_slots=8, max_len=512)
     sched = Scheduler(engine, max_queue=64)
@@ -11,6 +11,9 @@ reloader. See engine.py for the design. Typical use:
 
 Give the scheduler a ``RequestJournal`` and accepted work survives a
 kill: ``replay_into`` resumes it with the uninterrupted stream.
+``WeightReloader`` swaps checkpoints in between decode steps; ``Router``
+fronts several ``cli.serve`` replicas and hands a dead one's journaled
+work to a survivor (``handoff_states``).
 """
 
 from progen_tpu_torch.serving.engine import (
@@ -20,12 +23,20 @@ from progen_tpu_torch.serving.engine import (
     SlotBatch,
 )
 from progen_tpu_torch.serving.journal import (
+    STATUS_HANDED_OFF,
     RequestJournal,
+    handoff_states,
     replay_into,
     replay_requests,
 )
 from progen_tpu_torch.serving.metrics import ServingMetrics
 from progen_tpu_torch.serving.prefix_cache import PrefixCache
+from progen_tpu_torch.serving.reload import WeightReloader
+from progen_tpu_torch.serving.router import (
+    ReplicaSpec,
+    Router,
+    parse_replica_spec,
+)
 from progen_tpu_torch.serving.scheduler import (
     REJECT_DEADLINE,
     REJECT_DRAINING,
@@ -50,6 +61,12 @@ __all__ = [
     "RequestJournal",
     "replay_into",
     "replay_requests",
+    "handoff_states",
+    "STATUS_HANDED_OFF",
+    "WeightReloader",
+    "Router",
+    "ReplicaSpec",
+    "parse_replica_spec",
     "REJECT_QUEUE_FULL",
     "REJECT_DEADLINE",
     "REJECT_DRAINING",

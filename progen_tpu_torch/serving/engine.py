@@ -45,7 +45,9 @@ fixed prompt through a fresh cache.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import itertools
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
@@ -71,12 +73,15 @@ class PreparedParams(NamedTuple):
     """A checkpoint's parameters, checked against the served model and on
     its device (``ServeEngine.prepare_params``), waiting for
     ``commit_params`` between decode steps; under int8 serving also
-    their quantised weights, scales and calibration report."""
+    their quantised weights, scales and calibration report. On a card
+    ``ready`` is the event recorded on the staging stream after the last
+    of that work, which the commit's stream waits for."""
 
     params: dict
     q_params: Optional[dict] = None
     q_scales: Optional[dict] = None
     quant_report: Optional[dict] = None
+    ready: Any = None  # torch.cuda.Event, or None on the CPU
 
 
 class _DecodeCall(nn.Module):
@@ -191,10 +196,21 @@ class ServeEngine:
         self._targets = [n] * s  # host mirror for collect()
         self._prefix_cache = None
         self._call = _DecodeCall(model)
+        # what a weight swap must match, read once: under int8 serving
+        # the model's own tensors are swapped out during each decode call
+        self._param_specs = {k: (v.shape, v.dtype)
+                             for k, v in model.state_dict().items()}
+        self._stage_stream = None  # the weight swap's side stream
         self.quantize_int8 = bool(quantize_int8)
         self.quant_report = None
         self._q_params = self._q_scales = None
         if self.quantize_int8:
+            # a module tree of its own over the model's tensors, built
+            # before any decode: a weight swap calibrates through it on
+            # another thread, never swapping weights into the served model
+            shared = {id(t): t for t in itertools.chain(
+                model.parameters(), model.buffers())}
+            self._calib_call = _DecodeCall(copy.deepcopy(model, shared))
             params = model.state_dict()
             self._q_params, self._q_scales, leaves = quantize_tree(
                 params, model.config)
@@ -222,21 +238,23 @@ class ServeEngine:
 
     @torch.inference_mode()
     def _calibrate(self, leaves: list, params: dict, q_params: dict,
-                   q_scales: dict) -> dict:
+                   q_scales: dict, call=None) -> dict:
         """The int8 path's accuracy record: each quantised leaf's weight
         max-abs-error, and the worst logit max-abs-error of the
         dequantised weights against ``params`` over the fixed prompt
         (1, 7, 23, 4) fed through a fresh cache (the op sequence decode
         runs). It takes the weights explicitly, so a weight swap can
-        calibrate candidate weights while the live ones keep serving."""
+        calibrate candidate weights while the live ones keep serving
+        (through ``call``, a module tree apart from the served model's)."""
+        call = self._call if call is None else call
         full = {f"model.{k}": v for k, v in params.items()}
         deq = {**full, **self._dequantized(q_params, q_scales)}
         cache_a, cache_b = self.fresh_cache.clone(), self.fresh_cache.clone()
         worst = 0.0
         for tok in (1, 7, 23, 4):
             t = torch.full((1, 1), tok, dtype=torch.long, device=self.device)
-            la = torch.func.functional_call(self._call, full, (t, cache_a))
-            lb = torch.func.functional_call(self._call, deq, (t, cache_b))
+            la = torch.func.functional_call(call, full, (t, cache_a))
+            lb = torch.func.functional_call(call, deq, (t, cache_b))
             worst = max(worst, float((la.float() - lb.float()).abs().max()))
         return {
             "bits": 8,
@@ -267,8 +285,11 @@ class ServeEngine:
         names, and each tensor's shape and dtype) and move it to the
         model's device; under int8 serving quantise and calibrate it
         again. Anything else raises ValueError: a model of another shape
-        needs a new engine. Touches no engine state."""
-        live = self.model.state_dict()
+        needs a new engine. Touches no engine state, and may run on
+        another thread while the loop decodes: on a card its copies and
+        kernels go to a side stream of their own, so they overlap the
+        decode steps, and the result carries the event that ends them."""
+        live = self._param_specs
         if set(state_dict) != set(live):
             missing = sorted(set(live) - set(state_dict))
             extra = sorted(set(state_dict) - set(live))
@@ -276,26 +297,49 @@ class ServeEngine:
                 "incompatible checkpoint: parameter names differ from the "
                 f"served model's (missing {missing[:3]}, extra {extra[:3]})"
             )
-        for name, t in live.items():
+        for name, (shape, dtype) in live.items():
             cand = state_dict[name]
-            if cand.shape != t.shape or cand.dtype != t.dtype:
+            if cand.shape != shape or cand.dtype != dtype:
                 raise ValueError(
                     f"incompatible checkpoint: {name} is "
                     f"{tuple(cand.shape)}/{cand.dtype}, the served model's "
-                    f"is {tuple(t.shape)}/{t.dtype}"
+                    f"is {tuple(shape)}/{dtype}"
                 )
+        if self.device.type != "cuda":
+            return self._stage(state_dict)
+        if self._stage_stream is None:
+            self._stage_stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self._stage_stream):
+            prepared = self._stage(state_dict)
+            ready = torch.cuda.Event()
+            ready.record(self._stage_stream)
+        return prepared._replace(ready=ready)
+
+    def _stage(self, state_dict: dict) -> PreparedParams:
+        """The device copies (and the int8 tables) of ``prepare_params``,
+        on the current stream."""
         params = {k: v.to(self.device) for k, v in state_dict.items()}
         if not self.quantize_int8:
             return PreparedParams(params)
         q_params, q_scales, leaves = quantize_tree(params, self.model.config)
         return PreparedParams(params, q_params, q_scales, self._calibrate(
-            leaves, params, q_params, q_scales))
+            leaves, params, q_params, q_scales, call=self._calib_call))
 
     def commit_params(self, prepared: PreparedParams) -> None:
-        """Copy the prepared weights into the served model (and its int8
-        weights into place), between two decode steps. Requests in flight
+        """Copy the prepared weights into the served model, in place (the
+        parameters keep their storage and addresses), and the int8
+        weights into place, between two decode steps. Requests in flight
         go on with their caches; the prefix cache's snapshots were
         computed under the old weights and are dropped."""
+        if prepared.ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(prepared.ready)
+            # the staged blocks are read on this stream: the allocator
+            # must not hand them to the staging stream before that ends
+            for tree in (prepared.params, prepared.q_params or {},
+                         prepared.q_scales or {}):
+                for t in tree.values():
+                    t.record_stream(stream)
         self.model.load_state_dict(prepared.params)
         if self.quantize_int8:
             self._q_params = prepared.q_params

@@ -1,8 +1,7 @@
 """Request replay journal: crash-safe accounting of accepted work.
 
-The port of the JAX package's ``serving/journal.py``, without the
-router's ``handoff_states``. Three append-only record kinds in
-``journal.jsonl``:
+The port of the JAX package's ``serving/journal.py``. Three append-only
+record kinds in ``journal.jsonl``:
 
     {"ev": "journal", "op": "accept", "req": ..., "prime": [...],
      "length": ..., "seed": s, "draw_offset": d, ...}  # full resume state
@@ -23,11 +22,19 @@ resumed request at ``draw_offset + n_emitted`` makes its stream equal to
 the uninterrupted one. Resumed requests are journaled again as fresh
 accepts (the longer prime, the later offset), so a second crash replays
 from the second accept.
+
+The journal is also the unit of ownership in a fleet of replicas
+(``serving/router.py``): a request belongs to whichever journal holds
+its unsettled ``accept``. When a replica dies, the router folds its
+journal (``handoff_states``), sends the unfinished requests to a
+survivor and appends a ``done`` record with status ``handed_off``, so a
+restart with ``--replay`` never answers them again.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import threading
 import time
 from pathlib import Path
@@ -40,6 +47,8 @@ from progen_tpu_torch.telemetry.spans import get_telemetry
 from progen_tpu_torch.telemetry.trace import LineDrops, iter_jsonl
 
 STATUS_COMPLETED = "completed"
+# ownership moved to the router: settled here, answered elsewhere
+STATUS_HANDED_OFF = "handed_off"
 
 
 class RequestJournal:
@@ -100,32 +109,43 @@ class RequestJournal:
         })
 
     def done(self, request_id: str, status: str,
-             n_generated: int = 0) -> None:
-        """Terminal record: ``completed``, or a shed reason
-        (``deadline_exceeded``/``draining``); either way the request is
-        settled with its client and is never replayed."""
-        self.emit({
+             n_generated: int = 0,
+             resumed_by: Optional[str] = None) -> None:
+        """Terminal record: ``completed``, ``handed_off``, or a shed
+        reason (``deadline_exceeded``/``draining``); either way the
+        request is settled with its client and is never replayed.
+        ``resumed_by`` names the replica a ``handed_off`` request went to
+        (``router`` while it waits in the router's queue)."""
+        rec = {
             "ev": "journal", "op": "done", "ts": time.time(),
             "req": str(request_id), "status": str(status),
             "n_generated": int(n_generated),
-        })
+        }
+        if resumed_by is not None:
+            rec["resumed_by"] = str(resumed_by)
+        self.emit(rec)
 
     def close(self) -> None:
         with self._lock:
             self._f.close()
 
 
-def _read_state(path, drops: Optional[LineDrops] = None) -> dict:
+def _read_state(path, drops: Optional[LineDrops] = None,
+                normalize=None) -> dict:
     """Fold the journal into per-request state. Re-accepts (a replayed
     run journals resumed requests again) overwrite the resume
     parameters; token watermarks accumulate by index across accepts (the
     indices of successive rounds never overlap, because each re-accept
-    folds the earlier tokens into its prime)."""
+    folds the earlier tokens into its prime). ``normalize`` rewrites the
+    ids before the fold (the router strips the connection namespace, so
+    accepts over two connections fold as one request's)."""
     state: dict = {}
     for rec in iter_jsonl(path, drops):
         if rec.get("ev") != "journal":
             continue
         rid = rec.get("req")
+        if normalize is not None:
+            rid = normalize(rid)
         entry = state.setdefault(
             rid, {"accept": None, "tokens": {}, "done": None}
         )
@@ -140,10 +160,11 @@ def _read_state(path, drops: Optional[LineDrops] = None) -> dict:
 
 
 def _classify(entry: dict) -> dict:
-    """One folded, unsettled request (with an ``accept``) -> resume
-    state. ``kind`` is ``finished`` (the journaled stream already meets
-    the stop rule: it reached its length, or emitted the second zero) or
-    ``pending`` (resumable mid-stream)."""
+    """One folded request (with an ``accept``) -> resume state. ``kind``
+    is ``done`` (a terminal record), ``finished`` (the journaled stream
+    already meets the stop rule: it reached its length, or emitted the
+    second zero) or ``pending`` (resumable mid-stream). ``start`` is the
+    index of the first token this accept emits."""
     acc = entry["accept"]
     prime = [int(t) for t in acc["prime"]]
     add_bos = bool(acc.get("add_bos", False))
@@ -158,7 +179,9 @@ def _classify(entry: dict) -> dict:
         + sum(1 for t in prime if t == 0)
         + sum(1 for t in emitted if t == 0)
     )
-    if acc.get("kind") == "embed":
+    if entry["done"] is not None:
+        kind = "done"
+    elif acc.get("kind") == "embed":
         # embeds emit no tokens (start >= length would settle them as
         # finished): an unsettled embed accept is always resumable
         kind = "pending"
@@ -167,7 +190,7 @@ def _classify(entry: dict) -> dict:
     else:
         kind = "pending"
     return {"kind": kind, "accept": acc, "emitted": emitted,
-            "length": length}
+            "start": start, "length": length, "done": entry["done"]}
 
 
 def resume_request(rid: str, cls: dict) -> Request:
@@ -196,6 +219,42 @@ def resume_request(rid: str, cls: dict) -> Request:
         frozen=None if frozen is None else np.asarray(frozen, bool),
         trace_id=acc.get("trace_id"),
     )
+
+
+# socket transports journal ids namespaced by connection: "{fd}:{id}"
+_CONN_NS_RE = re.compile(r"^\d+:")
+
+
+def handoff_states(path, drops: Optional[LineDrops] = None) -> dict:
+    """The router's ownership view of a (dead) replica's journal: every
+    journaled request classified for handoff, ``{rid: cls}`` with ``cls``
+    the ``_classify`` output plus ``"jids"``: the raw (connection-
+    namespaced) journal ids that contributed, against which a
+    ``handed_off`` mark must be written so a later ``--replay`` of the
+    same journal skips them. Ids are normalised by stripping the
+    ``{fd}:`` namespace, so a request the router sent to the same
+    replica again over a later connection folds with its first accept,
+    as an in-process re-accept does."""
+    jids: dict = {}
+
+    def norm(rid):
+        rid = str(rid)
+        base = rid.split(":", 1)[1] if _CONN_NS_RE.match(rid) else rid
+        jids.setdefault(base, set()).add(rid)
+        return base
+
+    out: dict = {}
+    for rid, entry in _read_state(path, drops, normalize=norm).items():
+        if entry["accept"] is None:
+            if entry["done"] is None:
+                continue  # tokens without an accept: torn journal head
+            cls = {"kind": "done", "accept": None, "emitted": [],
+                   "start": 0, "length": 0, "done": entry["done"]}
+        else:
+            cls = _classify(entry)
+        cls["jids"] = sorted(jids.get(rid, {rid}))
+        out[rid] = cls
+    return out
 
 
 def replay_requests(

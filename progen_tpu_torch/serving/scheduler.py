@@ -1,9 +1,9 @@
 """FIFO admission scheduling for the slot-pool engine.
 
-The port of the JAX package's ``serving/scheduler.py``, without the
-router's ``release``, which comes with the host-side stack. Each decode
+The port of the JAX package's ``serving/scheduler.py``. Each decode
 step passes the ``serve/decode`` fault-injection site
-(``resilience/chaos.py``).
+(``resilience/chaos.py``). ``release`` hands a still-queued request
+back to the router (its rebalance and scale-down path).
 
 Continuous batching in the Orca (OSDI '22) sense: admission happens at
 token-iteration granularity — every ``step()`` first drains the FIFO
@@ -410,6 +410,39 @@ class Scheduler:
             self._shed_traced(req, reason)
         self.metrics.set_gauge("queue_depth", 0)
         return n
+
+    def release(self, request_id: str) -> bool:
+        """Surrender one still-queued request to the caller (the router's
+        rebalance or scale-down path). Only a queued request can go: one
+        on a slot, or mid-prefill, has device work in it and may have
+        streamed tokens, so it finishes here. A granted release is a
+        journal settlement (``done(handed_off)``, the mark the router
+        writes when it folds a dead journal), so a later ``--replay`` of
+        this process skips it. True iff the request was released."""
+        kept: deque[Tuple[Request, float]] = deque()
+        released = None
+        for req, t_submit in self._queue:
+            if released is None and req.id == request_id:
+                released = req
+            else:
+                kept.append((req, t_submit))
+        if released is None:
+            return False
+        self._queue = kept
+        self.metrics.inc("requests_released")
+        self.metrics.set_gauge("queue_depth", len(self._queue))
+        now = time.time()
+        self._req_event("n", released.id, "released", ts=now,
+                        trace=released.trace_id)
+        self._req_event("e", released.id, "queued", ts=now,
+                        trace=released.trace_id)
+        self._req_event("e", released.id, "request", ts=now,
+                        trace=released.trace_id, reason="released")
+        if self.journal is not None:
+            # journal.STATUS_HANDED_OFF (journal.py imports this module)
+            self.journal.done(released.id, "handed_off", 0,
+                              resumed_by="router")
+        return True
 
     def _serve_embed(self, req: Request, t_submit: float) -> None:
         """Answer an embed request at admission time: one full forward,

@@ -70,7 +70,9 @@ def test_package_has_the_slice_modules():
                 "parallel.pipeline", "parallel.pipeline_1f1b",
                 "telemetry", "telemetry.prometheus", "telemetry.hbm",
                 "telemetry.goodput", "telemetry.watchdog",
-                "resilience.anomaly", "profiling"):
+                "resilience.anomaly", "profiling", "utils", "utils.env",
+                "fleet", "fleet.transport", "serving.reload",
+                "serving.router", "cli.router"):
         assert f"progen_tpu_torch.{mod}" in names
 
 

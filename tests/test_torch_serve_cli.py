@@ -5,8 +5,9 @@ protocol end to end in a subprocess (token, done, embedding and rejected
 lines, an infill template, EOF drains and exits 0), a run SIGKILLed
 mid-stream with ``--journal_dir`` followed by a ``--replay`` run (every
 accepted id settled exactly once, the streams those of ``sample_fast``),
-the resume wire's fields, and every flag of the JAX CLI that is not
-ported refused with its ROADMAP item."""
+the resume wire's fields, the fleet flags accepted, the release control
+line over --socket, and every flag of the JAX CLI that is not ported
+refused with its ROADMAP item."""
 
 import json
 import re
@@ -193,6 +194,18 @@ def test_parse_request_takes_the_resume_wire():
     assert req.id == "z" and err.startswith("bad request fields")
 
 
+@pytest.mark.parametrize("argv,attr,want", [
+    (["--socket", "/tmp/s.sock"], "socket_path", "/tmp/s.sock"),
+    (["--tcp", "127.0.0.1:0"], "tcp_hostport", "127.0.0.1:0"),
+    (["--idle_timeout", "3"], "idle_timeout", 3.0),
+    (["--reload_watch", "2.5"], "reload_watch", 2.5),
+    (["--reload_pin", "/tmp/reload.pin"], "reload_pin_path",
+     "/tmp/reload.pin"),
+])
+def test_accepts_the_fleet_flags(argv, attr, want):
+    assert getattr(serve.parse_args(argv), attr) == want
+
+
 @pytest.mark.parametrize("flag", sorted(serve.NOT_PORTED))
 def test_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -226,3 +239,82 @@ def test_prom_file_carries_the_metrics_and_exemplars(ckpt, tmp_path):
     assert re.search(r'^progen_serve_latency_seconds\{quantile="0\.99"\} '
                      r'\S+ # \{trace_id="tr-[ab]"\} \S+$', text, re.M)
     assert "progen_serve_decode_tokens_per_s" in text
+
+
+def test_prom_file_carries_the_kernel_launches(ckpt, tmp_path):
+    """--prom_file also carries the process's own kernel launches, one
+    gauge per kernel id; on the CPU every wrapper takes its plain
+    version, which counts none, so an embedding leaves them all 0."""
+    from progen_tpu_torch.ops.launches import WRAPPERS, gauge_name
+
+    ck, _ = ckpt
+    prom = tmp_path / "serve.prom"
+    line = json.dumps({"id": "e", "prime": "MKTAYIAKQR", "embed": True})
+    rc, events, err = _serve(ck, tmp_path, [line], "--prom_file", str(prom))
+    assert rc == 0, err
+    assert [e["event"] for e in events] == ["embedding"]
+    text = prom.read_text()
+    for rid in WRAPPERS:
+        assert f"progen_serve_{gauge_name(rid)} 0\n" in text
+
+
+def test_socket_release_control_line(ckpt, tmp_path):
+    """--socket: a client's own events only, and ``{"ctl": "release"}``
+    gives back a still-queued request (journaled ``handed_off``, so a
+    replay skips it) but not one on a slot."""
+    import select
+    import signal
+    import socket
+    import time
+
+    from progen_tpu_torch.fleet.transport import LineConnection
+
+    ck, model = ckpt
+    sock, jd = tmp_path / "s.sock", tmp_path / "jd"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "progen_tpu_torch.cli.serve", "--device",
+         "cpu", "--checkpoint_path", str(ck), "--max-len", "32",
+         "--max-slots", "1", "--socket", str(sock), "--journal_dir",
+         str(jd)], stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True, cwd=tmp_path, env=dict(os.environ, PYTHONPATH=str(REPO)))
+    events = []
+    try:
+        deadline = time.monotonic() + 120
+        while not sock.exists():
+            assert proc.poll() is None and time.monotonic() < deadline
+            time.sleep(0.05)
+        s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        s.connect(str(sock))
+        conn = LineConnection(s)
+        for req in REQUESTS[:2]:
+            conn.send_line(json.dumps(req))
+
+        def read_until(pred):
+            while not pred():
+                assert time.monotonic() < deadline, events
+                if select.select([conn], [], [], 0.1)[0]:
+                    lines, eof = conn.recv_lines()
+                    events.extend(json.loads(ln) for ln in lines)
+                    assert not eof
+
+        read_until(lambda: any(e["event"] == "token" for e in events))
+        for rid in ("r2", "r1"):
+            conn.send_line(json.dumps({"ctl": "release", "id": rid}))
+        read_until(lambda: sum(e["event"] == "released" for e in events) == 2
+                   and any(e["event"] == "done" for e in events))
+        conn.close()
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        _, err = proc.communicate(timeout=60)
+    assert proc.returncode == 0, err
+    released = {e["id"]: e["released"] for e in events
+                if e["event"] == "released"}
+    assert released == {"r2": True, "r1": False}
+    assert [e["id"] for e in events if e["event"] == "done"] == ["r1"]
+    assert {e["id"] for e in events if e["event"] == "token"} == {"r1"}
+    _check_stream(model, REQUESTS[0], _streams(events)["r1"])
+    marks = [json.loads(ln) for ln in (jd / "journal.jsonl").read_text()
+             .splitlines() if '"done"' in ln]
+    assert sorted((m["req"].split(":", 1)[1], m["status"],
+                   m.get("resumed_by")) for m in marks) == [
+        ("r1", "completed", None), ("r2", "handed_off", "router")]
