@@ -202,11 +202,19 @@ Phases, one line each:
      FASTA of phase 8 through generate_data, then python -m
      progen_tpu_torch.cli.train in a child process at base.toml's widths
      with the depth cut to 6 since slice 9 (RES_DEPTH; --mixed_precision,
-     batch 4 x 4, 7 steps) with --async_checkpoint --checkpoint_every 3 --prom_file
+     batch 4 x 4, 9 steps) with --async_checkpoint --checkpoint_every 3 --prom_file
      --profile_dir --stall_timeout 300 --stall_escalate_after 2
-     --anomaly_patience 3 and PROGEN_CHAOS=train/loss:nan@3: it must exit
+     --anomaly_patience 3 --flight_dir --profile_pin and
+     PROGEN_CHAOS=train/loss:nan@3 (wandb blocked in the child, so the
+     JSON-lines tracker writes events.jsonl): it must exit
      0 after logging "anomaly rollback 1/3" (the state restored from an
-     asynchronous checkpoint); its exposition's goodput buckets must sum
+     asynchronous checkpoint) and leave a sealed anomaly_rollback flight
+     dump that verifies; the pin this process writes once the log shows
+     step 2 (a 1 s window, polled once --profile_dir's window has closed)
+     must be acked started, then stopped, and its Chrome trace name
+     fwd_tc_kernel, rows_tc_kernel or kv_tc_kernel, norm_shift_kernel and
+     sgu_mix_tc_kernel; events.jsonl must hold one clock_beacon a step;
+     its exposition's goodput buckets must sum
      to its wall clock within 0.5%, carry goodput_pct, mfu,
      hbm_in_use_gb and anomaly_rollbacks_total > 0, and its mfu lie in
      (0, 1] within 1% of tokens_per_sec_per_chip x flops_per_token /
@@ -220,8 +228,9 @@ Phases, one line each:
      save's. It prints the CLI's step time, tokens/s and MFU beside
      phase 5's and phase 8's, the goodput split, the seconds each save
      costs the loop, the profile window's seconds and the phase's;
- 13. fleet, the serving fleet's data plane at base.toml whole in
-     bfloat16, in build/chip_smoke_fleet/ (removed afterwards): two
+ 13. fleet, the serving fleet's data plane at base.toml's widths in
+     bfloat16, depth cut to 6 since slice 10 (FLEET_DEPTH), in
+     build/chip_smoke_fleet/ (removed afterwards): two
      params-only checkpoints, A (seeded weights) and B (A plus seeded
      noise, saved once the replicas chose A); two cli.serve children at
      one slot, r0 on --socket and r1 on --tcp 127.0.0.1:0 with
@@ -249,7 +258,39 @@ Phases, one line each:
      a 4-slot engine, from B to A by name while it decodes: it prints the
      pool's step interval while the load stages against without, the
      peak bytes the staging adds, the reload's seconds, and fails unless
-     every live parameter kept its address and holds A's values.
+     every live parameter kept its address and holds A's values;
+ 14. fleet_observability, the telemetry back end, the flight recorder,
+     on-demand profiling and the autoscaler at base.toml whole in
+     bfloat16, in build/chip_smoke_observability/ (removed afterwards):
+     cli.router --spawn 1 --autoscale (a phase-local policy: 1..2
+     replicas, queue_high 3, queue_low 1, sustain 2 ticks of 1 s, down
+     cooldown 5 s) --autoscale_tsdb --replica_profile_watch --flight_dir,
+     its replicas at one slot; cli.collector --interval 1 over the
+     router's and both replicas' expositions with an SLO file (TTFT p95
+     0.5 s), replica 0's profile pin, --flight-dir, --alerts-out and
+     --remote-write to a loopback HTTP receiver in this process. One
+     burst of 10 generates of 64 new tokens (distinct seeds) with 2
+     embeds after the third goes through the router: the queue must
+     cross 3 and the autoscaler record an up decision, replica 1 boot
+     with --replay and take work; the TTFT objective must burn, the
+     collector leave a sealed slo_burning dump and write replica 0's pin,
+     and replica 0 run the embeds inside the torch.profiler window that
+     opens (its Chrome trace must name fwd_tc_kernel, norm_shift_kernel
+     and sgu_mix_tc_kernel); every stream must equal sample_fast and each
+     id settle once. In the quiet after it a down decision must retire
+     replica 1, which exits 0 on SIGTERM. Then the offline tools on the
+     phase's files: cli.telemetry stitch of the three events.jsonl (three
+     pids), export-trace of the collector's dump, slo-report (exit 2) and
+     query over the TSDB; cli.top --once at the peak shows both replicas
+     up; the receiver got a batch; read_scale_records reads up, then
+     down. The replicas' launches come from their expositions (the two
+     embed forwards). It prints the seconds from the queue's crossing to
+     the up decision, from the spawn to replica 1's first token and from
+     the down decision to its exit, the collector's tick ms and TSDB
+     bytes, the window's seconds, trace bytes and export seconds, each
+     flight dump's bytes, and, in this process on a 4-slot engine of the
+     same weights, the pool's step time with the recorder armed against
+     without it and a full ring's dump ms.
 
 Phase 2 also holds A4 (forward and both backwards, with a halo) against
 its plain versions at long8k's shard shapes with 2 shards, and runs the
@@ -3753,7 +3794,10 @@ def phase_grid(base, card: str, tc: dict) -> dict:
 
 
 # phase 12: cli.train's telemetry and resilience at base.toml, whole
-RES_STEPS = 7  # the rollback (steps 1-3 poisoned) and 2 measured steps
+# the rollback (steps 1-3 poisoned), --profile_dir's window (steps 2-6:
+# the rollback holds the loop's index) and the profile pin's window, which
+# opens once that one has closed (step 7) and covers steps 8-9
+RES_STEPS = 9
 RES_CHAOS = "train/loss:nan@3"  # the JAX package's rollback test's spec
 RES_MFU_RTOL = 0.01
 # base.toml's widths, depth cut to RES_DEPTH since slice 9: at 24 layers
@@ -3762,15 +3806,36 @@ RES_MFU_RTOL = 0.01
 RES_DEPTH = 6
 
 
+# the child runs cli.train's main with wandb blocked (the card's machine
+# has wandb installed and no login, and the JSON-lines tracker writes the
+# events.jsonl the beacon and profile checks read) and its cadenced sample
+# cut to RES_SAMPLE_TOKENS new tokens, as phase 8's (since slice 10: the
+# step-0 sample decoded 1,024 tokens in ~14 s of the phase)
+RES_SAMPLE_TOKENS = 32
+TRAIN_CHILD = (
+    "import sys; sys.modules['wandb'] = None\n"
+    "from progen_tpu_torch.cli import train\n"
+    "real = train.sample_fast\n"
+    "def short(seed, model, prime, length, **kw):\n"
+    f"    return real(seed, model, prime, len(prime) + 1 + {RES_SAMPLE_TOKENS},"
+    " **kw)\n"
+    "train.sample_fast = short\n"
+    "sys.exit(train.main(sys.argv[1:]))\n")
+RES_WINDOW_S = 1.0  # the profile pin's window
+
+
 def resilience_cli(work: Path, data: Path) -> dict:
     """cli.train in a child process at base.toml's widths (depth
     RES_DEPTH, the TOML in work/model_cfg) with every flag of the slice on
-    and PROGEN_CHAOS=RES_CHAOS (no tracker: the card's machine has wandb
-    installed and no login); its output, exposition and profile
-    directory."""
+    and PROGEN_CHAOS=RES_CHAOS; once its log shows step 2 this process
+    writes its profile pin, asking for a RES_WINDOW_S window. Its output,
+    exposition, profile directory, flight dumps, pin and events."""
+    from progen_tpu_torch.telemetry import flight
+
     ck, prof, prom = work / "ckpts", work / "profile", work / "train.prom"
-    args = [sys.executable, "-m", "progen_tpu_torch.cli.train",
-            "--device", "cuda", "--mixed_precision", "--wandb_off",
+    pin = work / "pin" / "profile.pin"
+    args = [sys.executable, "-c", TRAIN_CHILD,
+            "--device", "cuda", "--mixed_precision",
             "--config_path", str(work / "model_cfg"),
             "--model_name", "base", "--data_path", str(data),
             "--checkpoint_path", str(ck), "--batch_size", str(TRAIN_MICRO),
@@ -3780,21 +3845,43 @@ def resilience_cli(work: Path, data: Path) -> dict:
             "--seed", str(CLI_SEED), "--async_checkpoint",
             "--prom_file", str(prom), "--profile_dir", str(prof),
             "--stall_timeout", "300", "--stall_escalate_after", "2",
-            "--anomaly_patience", "3"]
+            "--anomaly_patience", "3", "--flight_dir", str(work / "flight"),
+            "--profile_pin", str(pin)]
     t = time.perf_counter()
-    res = subprocess.run(args, cwd=work, capture_output=True, text=True,
-                         timeout=600, env=dict(os.environ,
-                                               PYTHONPATH=str(REPO),
-                                               PROGEN_CHAOS=RES_CHAOS))
+    lines, token = [], None
+    child = subprocess.Popen(args, cwd=work, stdout=subprocess.PIPE,
+                             stderr=open(work / "train.err", "w"), text=True,
+                             env=dict(os.environ, PYTHONPATH=str(REPO),
+                                      PROGEN_CHAOS=RES_CHAOS))
+    reader = start_reader(child.stdout, lines)
+    try:
+        wait_for(lambda: any(re.match(r"^\[\S+ step 2\]", ln)
+                             for _, ln in list(lines)),
+                 "cli.train's step 2", [child], timeout=600)
+        token = flight.request_profile(pin, duration_s=RES_WINDOW_S)
+        rc = child.wait(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    reader.join(60)
     seconds = time.perf_counter() - t
     text = prom.read_text() if prom.exists() else ""
     samples = {m.group(1): float(m.group(2)) for m in re.finditer(
         r"^([a-zA-Z_:][a-zA-Z0-9_:]*(?:\{[^}]*\})?) (\S+)(?: #.*)?$", text,
         re.M)}
-    return dict(rc=res.returncode, stdout=res.stdout, stderr=res.stderr,
-                seconds=seconds, prom=samples,
+    ack = Path(str(pin) + ".ack")
+    return dict(rc=rc, stdout="\n".join(ln for _, ln in lines) + "\n",
+                stderr=log_text(work / "train.err"), seconds=seconds,
+                prom=samples,
                 traces=sorted(prof.glob("*.json")) if prof.is_dir() else [],
-                ckpt=ck)
+                ckpt=ck, dumps=flight.find_dumps(work / "flight"),
+                token=token, ack=json.loads(ack.read_text())
+                if ack.exists() else None,
+                windows=sorted((pin.parent / "profiles").glob(
+                    "*/*.pt.trace.json")),
+                events=[r for p in work.glob(
+                    "runs/progen-training/*/events.jsonl") for r in jsonl(p)])
 
 
 def check_resilience_cli(cfg, run: dict) -> tuple:
@@ -3863,6 +3950,34 @@ def check_resilience_cli(cfg, run: dict) -> tuple:
                        f"{got}, not {want_ck}")
     profile_s = [float(x) for x in re.findall(
         r"^profile: .* \(([0-9.]+) s\)$", out, re.M)]
+    # the flight recorder, the profile pin, the clock beacons
+    from progen_tpu_torch.telemetry import flight
+
+    reasons = []
+    for p in run["dumps"]:
+        try:
+            reasons.append(flight.verify_dump(p)["reason"])
+        except ValueError as e:
+            bad.append(f"a flight dump does not verify: {e}")
+    if "anomaly_rollback" not in reasons:
+        bad.append(f"no sealed anomaly_rollback dump: {reasons}")
+    evs = run["events"]
+    window = [r for r in evs if r.get("ev") == "profile"]
+    if [r["op"] for r in window] != ["started", "stopped"] or \
+            (run["ack"] or {}).get("status") != "stopped" or \
+            run["ack"].get("pin") != run["token"]:
+        bad.append(f"the pin's window: {window}, ack {run['ack']}")
+    window_kernels = (trace_kernel_counts(run["windows"][-1], TRAIN_KERNELS)
+                      if run["windows"] else {})
+    if not (window_kernels.get("fwd_tc_kernel")
+            and (window_kernels.get("rows_tc_kernel")
+                 or window_kernels.get("kv_tc_kernel"))
+            and window_kernels.get("norm_shift_kernel")
+            and window_kernels.get("sgu_mix_tc_kernel")):
+        bad.append(f"the pin's window trace names {window_kernels}")
+    beacons = [r["step"] for r in evs if r.get("ev") == "clock_beacon"]
+    if beacons != list(range(1, RES_STEPS + 1)):
+        bad.append(f"clock beacons at steps {beacons}, not one a step")
     summary = dict(
         seconds=run["seconds"], goodput=goodput, goodput_sum_pct=share,
         tokens_per_sec_per_chip=tps, mfu=mfu,
@@ -3873,7 +3988,14 @@ def check_resilience_cli(cfg, run: dict) -> tuple:
         losses=losses, rollback=rollbacks[0] if rollbacks else None,
         profile_s=profile_s[0] if profile_s else None,
         trace_bytes=trace_bytes, final_checkpoint=pkg and pkg.path,
-        final_restore_s=restore_s, flops_per_token=fpt)
+        final_restore_s=restore_s, flops_per_token=fpt,
+        flight_dumps=[dict(reason=r, bytes=p.stat().st_size)
+                      for r, p in zip(reasons, run["dumps"])],
+        pin_window_s=window[-1].get("duration_s") if window else None,
+        pin_window_export_s=window[-1].get("export_s") if window else None,
+        pin_window_bytes=run["windows"][-1].stat().st_size
+        if run["windows"] else None,
+        pin_window_kernels=window_kernels, clock_beacons=len(beacons))
     del pkg
     return bad, summary
 
@@ -3990,6 +4112,9 @@ def phase_resilience(cfg, card: str, result: dict) -> dict:
         rollback=cli["rollback"], losses=cli["losses"], hbm=cli["hbm"],
         hbm_gauges_parent=gauges,
         profile_s=cli["profile_s"], trace_bytes=cli["trace_bytes"],
+        **{k: cli[k] for k in ("flight_dumps", "pin_window_s",
+                               "pin_window_export_s", "pin_window_bytes",
+                               "pin_window_kernels", "clock_beacons")},
         checkpoint_bytes=saves["bytes"],
         blocking_save_s=saves["blocking_s"], async_save_s=saves["async_s"],
         async_finalize_wait_s=saves["finalize_wait_s"],
@@ -4003,7 +4128,11 @@ def phase_resilience(cfg, card: str, result: dict) -> dict:
     return dict(out, launches=saves["launches"])
 
 
-# phase 13: the serving fleet's data plane at base.toml whole, in bfloat16
+# phase 13: the serving fleet's data plane at base.toml's widths, in
+# bfloat16; depth cut to FLEET_DEPTH since slice 10 (at 24 layers the
+# phase took 101-143 s on an H100 80GB HBM3 at 700 W, and with phase 14
+# the script passed 850 s there)
+FLEET_DEPTH = 6
 FLEET_NEW = 96  # new tokens of each generate request
 FLEET_MAX_LEN = 256
 FLEET_KILL = 136  # r1's decode step of death: 40 steps into its 2nd stream
@@ -4623,7 +4752,7 @@ def phase_fleet(cfg, card: str, device: str = "cuda") -> dict:
                     p.kill()
                     p.wait()
         shutil.rmtree(work, ignore_errors=True)
-    out = dict(card=card, config="configs/model/base.toml",
+    out = dict(card=card, config="configs/model/base.toml", depth=cfg.depth,
                num_params=cfg.num_params(), requests=len(wires),
                new_tokens=FLEET_NEW, slots=1, kill_at=FLEET_KILL,
                fleet=fleet, handed_off_marks=journals, reload=reload,
@@ -4634,6 +4763,574 @@ def phase_fleet(cfg, card: str, device: str = "cuda") -> dict:
     line("fleet", **out)
     if bad:
         raise AssertionError("fleet: " + "; ".join(bad))
+    return out
+
+
+# phase 14: the telemetry back end, the flight recorder, on-demand
+# profiling and the autoscaler, driven by a fleet that scales itself at
+# base.toml whole, in bfloat16
+OBS_BURST = 10  # generates, distinct seeds
+OBS_NEW = 64  # new tokens of each
+OBS_MAX_LEN = 128
+OBS_POLICY = """[autoscaler]
+min_replicas = 1
+max_replicas = 2
+queue_high = 3.0
+queue_low = 1.0
+up_sustain = 2
+down_sustain = 2
+up_cooldown_s = 20.0
+down_cooldown_s = 5.0
+stale_after_s = 15.0
+interval_s = 1.0
+rebalance_max = 4
+"""
+# the burst comes in two waves through the router. Replica 0 takes
+# requests FIFO at one slot, so the first OBS_FIRST_WAVE generates queue
+# behind each other: the second's TTFT (the first's whole run) burns the
+# objective (p95 >= hot x OBS_TTFT_THRESHOLD_S), the collector writes
+# replica 0's pin and its 10 s profile window (cli.serve's) opens. Once
+# its ack says started, the second wave (the embeds first, then the other
+# generates) goes out: replica 0 answers the embeds between two decode
+# steps, inside the window, and the generates queue past queue_high
+OBS_FIRST_WAVE = 2
+OBS_TTFT_THRESHOLD_S = 1.0
+OBS_SLO = """[windows]
+short_s = 30
+long_s = 120
+
+[burn]
+warn = 1.0
+hot = 2.0
+stale_after_s = 30
+
+[objective_ttft_p95]
+kind = "latency"
+metric = "ttft_s"
+quantile = "p95"
+threshold_s = {threshold}
+"""
+OBS_STEPS = 12  # pool steps a round, recorder armed and not
+OBS_ROUNDS = 3
+# the kernels a replica's embed forward launches, by their CUDA symbols
+EMBED_KERNELS = ("fwd_tc_kernel", "norm_shift_kernel", "sgu_mix_tc_kernel")
+TRAIN_KERNELS = ("fwd_tc_kernel", "rows_tc_kernel", "kv_tc_kernel",
+                 "norm_shift_kernel", "sgu_mix_tc_kernel")
+
+
+def prom_gauge(path: Path, name: str):
+    """One unlabelled sample of an exposition, or None."""
+    m = re.search(rf"^{name} (\S+)$", log_text(path), re.M)
+    return None if m is None else float(m.group(1))
+
+
+def obs_requests() -> tuple:
+    """Phase 14's traffic: OBS_BURST generates of OBS_NEW new tokens and
+    2 embeds."""
+    gens = []
+    for i in range(OBS_BURST):
+        prime = PROTEINS[i % 7][i:i + 12 + i % 5]
+        gens.append({"id": f"b{i}", "prime": prime,
+                     "length": 1 + len(prime) + OBS_NEW, "seed": 700 + i})
+    embeds = [{"id": "e0", "prime": PROTEINS[7], "embed": True},
+              {"id": "e1", "prime": PROTEINS[3][:48], "embed": True}]
+    return gens, embeds
+
+
+class Receiver:
+    """A loopback HTTP receiver for the collector's remote-write pushes:
+    counts the POST bodies it accepts."""
+
+    def __init__(self):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.bodies = []
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                outer.bodies.append(self.rfile.read(
+                    int(self.headers.get("Content-Length", 0))))
+                self.send_response(200)
+                self.end_headers()
+
+            def log_message(self, *a):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}/write"
+        threading.Thread(target=self.server.serve_forever,
+                         daemon=True).start()
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def trace_kernel_counts(path: Path, names) -> dict:
+    """Kernel symbol -> the CUDA kernel events of a Chrome trace that
+    name it, read a line at a time (a serving window's trace is hundreds
+    of MB; torch writes an event's name right after its category)."""
+    out = dict.fromkeys(names, 0)
+    name = re.compile(r'"name": "([^"]*)"')
+    kernel = False
+    with path.open() as f:
+        for ln in f:
+            kernel = kernel or '"cat": "kernel"' in ln
+            m = name.search(ln) if kernel else None
+            if m is None:
+                continue
+            kernel = False
+            for n in names:
+                if n in m.group(1):
+                    out[n] += 1
+    return out
+
+
+def jsonl(path: Path) -> list:
+    from progen_tpu_torch.telemetry.trace import iter_jsonl
+
+    return list(iter_jsonl(path)) if path.exists() else []
+
+
+def replica_events(rdir: Path, cwd: Path) -> Path:
+    """A spawned replica's events.jsonl, named in its log."""
+    m = re.search(r"request traces: (\S+)", log_text(rdir / "replica.log"))
+    if m is None:
+        raise AssertionError(f"{rdir.name} named no events file")
+    return cwd / m.group(1)
+
+
+def run_cli(main, argv) -> tuple:
+    """A CLI's ``main(argv)`` in this process: (exit code, stdout)."""
+    import io
+
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = main(argv)
+    except SystemExit as e:
+        rc = e.code
+    return rc, out.getvalue()
+
+
+def recorder_cost(model, work: Path) -> dict:
+    """A 4-slot engine of the same weights: the pool's step time with the
+    flight recorder armed against without it, in alternating rounds, and
+    one dump of the full ring written from its records."""
+    from progen_tpu_torch.data.tokenizer import encode_tokens
+    from progen_tpu_torch.serving import Request, Scheduler, ServeEngine
+    from progen_tpu_torch.telemetry import flight
+
+    engine = ServeEngine(model, max_slots=4, max_len=FLEET_MAX_LEN)
+    sched = Scheduler(engine)
+    for i in range(4):
+        sched.submit(Request(id=f"o{i}", prime=encode_tokens(
+            PROTEINS[i][:12]).astype(np.int64), length=FLEET_MAX_LEN,
+            top_k=None, add_bos=False, seed=800 + i))
+
+    def steps(n):
+        out = []
+        for _ in range(n):
+            t = time.perf_counter()
+            sched.step()  # ends in the host copy of the sampled tokens
+            out.append(time.perf_counter() - t)
+        return out
+
+    steps(6)  # the prefills and the first decode steps
+    armed, plain, tapped = [], [], 0
+    try:
+        for _ in range(OBS_ROUNDS):
+            plain += steps(OBS_STEPS)
+            rec = flight.arm(work / "inproc_flight")
+            armed += steps(OBS_STEPS)
+            seen = rec.payload("count")
+            tapped += len(seen["records"]) + seen["truncated"]
+            flight.disarm()
+    finally:
+        flight.disarm()
+    p50_plain = float(np.median(plain)) * 1e3
+    p50_armed = float(np.median(armed)) * 1e3
+    return dict(step_ms_p50_disarmed=p50_plain, step_ms_p50_armed=p50_armed,
+                armed_over_disarmed=p50_armed / p50_plain,
+                steps_each=len(plain), records_tapped=tapped)
+
+
+def full_ring_dump(records, out: Path) -> dict:
+    """A flight recorder's default ring filled with ``records`` (the
+    phase's own, repeated to fill it) and dumped once: its bytes and ms."""
+    from progen_tpu_torch.telemetry import flight
+
+    rec = flight.FlightRecorder(out, host=0)
+    for r in itertools.islice(itertools.cycle(records), rec.ring):
+        rec.tap(dict(r))
+    t = time.perf_counter()
+    path = rec.dump("measure")
+    ms = (time.perf_counter() - t) * 1e3
+    flight.verify_dump(path)
+    return dict(records=rec.ring, bytes=path.stat().st_size, ms=ms)
+
+
+def collector_tick_ms(sources, slo: Path, work: Path) -> dict:
+    """The collector's scrape of the phase's sources, in this process, on
+    the files the run left: p50 and max of 20 ticks into a scratch
+    store."""
+    from progen_tpu_torch.telemetry.collector import (
+        Collector,
+        parse_source_spec,
+    )
+    from progen_tpu_torch.telemetry.slo import load_objectives
+    from progen_tpu_torch.telemetry.tsdb import RingTSDB
+
+    db = RingTSDB(work / "tick_tsdb")
+    coll = Collector(db, [parse_source_spec(s) for s in sources],
+                     stale_after_s=1e9, slo_cfg=load_objectives(slo))
+    ticks = []
+    for _ in range(20):
+        t = time.perf_counter()
+        coll.scrape_once()
+        ticks.append((time.perf_counter() - t) * 1e3)
+    db.close()
+    return dict(p50=float(np.median(ticks)), max=max(ticks))
+
+
+def phase_observability(cfg, card: str, device: str = "cuda") -> dict:
+    """Phase 14 (see the module docstring)."""
+    import shutil
+    import threading
+
+    from progen_tpu_torch import ProGen
+    from progen_tpu_torch.cli import telemetry as telemetry_cli
+    from progen_tpu_torch.cli import top as top_cli
+    from progen_tpu_torch.fleet.autoscaler import read_scale_records
+    from progen_tpu_torch.telemetry import flight
+    from progen_tpu_torch.telemetry.collector import fleet_series
+    from progen_tpu_torch.telemetry.tsdb import TsdbReader
+
+    t_phase = time.perf_counter()
+    work = REPO / "build" / "chip_smoke_observability"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    fleet, tsdb, ck = work / "fleet", work / "tsdb", work / "ck"
+    r0dir, r1dir = fleet / "replica0", fleet / "replica1"
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    procs, bad, parts, marks = [], [], {}, {}
+    receiver = Receiver()
+    gens, embeds = obs_requests()
+    waves = (gens[:OBS_FIRST_WAVE], embeds + gens[OBS_FIRST_WAVE:])
+    sources = [f"name=router,role=router,prom={fleet / 'router.prom'}",
+               f"name=r0,prom={r0dir / 'metrics.prom'}",
+               f"name=r1,prom={r1dir / 'metrics.prom'}"]
+    try:
+        t = time.perf_counter()
+        model = ProGen(cfg, device=device, seed=0).eval()
+        save_params(ck, model)
+        parts["save"] = time.perf_counter() - t
+        (work / "policy.toml").write_text(OBS_POLICY)
+        t_boot = time.perf_counter()
+        lines = []
+        router = subprocess.Popen(
+            [sys.executable, "-m", "progen_tpu_torch.cli.router", "--spawn",
+             "1", "--device", device, "--checkpoint_path", str(ck),
+             "--fleet_dir", str(fleet), "--replica-max-slots", "1",
+             "--max-len", str(OBS_MAX_LEN), "--autoscale",
+             str(work / "policy.toml"), "--autoscale_tsdb", str(tsdb),
+             "--replica_profile_watch", "--flight_dir",
+             str(fleet / "router"), "--prom_file", str(fleet / "router.prom"),
+             "--metrics-every", "5"],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=open(work / "router.log", "ab"), text=True, cwd=work,
+            env=env)
+        procs.append(router)
+        reader = start_reader(router.stdout, lines)
+        refs, ref_s = {}, []
+
+        def references():
+            for w in gens:
+                t0 = time.perf_counter()
+                refs[w["id"]] = fleet_reference(model, w)
+                ref_s.append(time.perf_counter() - t0)
+
+        (work / "slo.toml").write_text(OBS_SLO.format(
+            threshold=OBS_TTFT_THRESHOLD_S))
+        wait_for(lambda: "listening on" in log_text(r0dir / "replica.log"),
+                 "replica0 listens", [router])
+        parts["boot"] = time.perf_counter() - t_boot
+        # started once replica 0 is up, so its boot has the host to itself;
+        # the card is shared, the replicas are host-bound
+        ref_thread = threading.Thread(target=references)
+        ref_thread.start()
+        collector = subprocess.Popen(
+            [sys.executable, "-m", "progen_tpu_torch.cli.collector",
+             "--tsdb", str(tsdb), "--interval", "1", "--stale-after", "60",
+             *itertools.chain.from_iterable(("--source", s)
+                                            for s in sources),
+             "--slo", str(work / "slo.toml"), "--profile-pin",
+             str(r0dir / "profile.pin"), "--flight-dir",
+             str(work / "collector_flight"), "--alerts-out",
+             str(work / "alerts.jsonl"), "--remote-write", receiver.url],
+            stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL,
+            stderr=open(work / "collector.log", "ab"), cwd=work, env=env)
+        procs.append(collector)
+        wait_for(lambda: tsdb.is_dir() and any(
+            True for _ in TsdbReader(tsdb).read()),
+            "the collector's first tick", [router, collector])
+
+        # the burst through the router, in two waves
+        t_burst = time.perf_counter()
+        marks["burst"] = time.time()
+        router.stdin.write("".join(json.dumps(w) + "\n" for w in waves[0]))
+        router.stdin.flush()
+        ack = r0dir / "profile.pin.ack"
+        ids = sorted(w["id"] for w in gens + embeds)
+        peak = {}
+
+        def progress():
+            now = time.time()
+            seen = json.loads(ack.read_text()) if ack.exists() else {}
+            # the ack, and the window's own record (emitted once the
+            # profiler has started) in replica 0's events
+            if "wave2" not in marks and seen.get("status") == "started" \
+                    and any(r.get("ev") == "profile" and r.get("op") ==
+                            "started" for r in jsonl(replica_events(
+                                r0dir, work))):
+                marks["wave2"], marks["ack"] = now, seen
+                router.stdin.write("".join(json.dumps(w) + "\n"
+                                           for w in waves[1]))
+                router.stdin.flush()
+            if not peak and tsdb.is_dir():
+                snap = json.loads(run_cli(top_cli.main, [
+                    "--tsdb", str(tsdb), "--once", "--json"])[1])
+                up = sorted(s["name"] for s in snap["sources"]
+                            if s["role"] == "replica" and s["up"])
+                if up == ["r0", "r1"]:
+                    peak.update(snapshot=snap, frame=run_cli(
+                        top_cli.main, ["--tsdb", str(tsdb), "--once",
+                                       "--no-color"])[1], ts=now)
+            text = log_text(work / "router.log")
+            if "exit" not in marks and "replica1: exited" in text:
+                marks["exit"] = now
+            settled = sorted(e["id"] for e in events_of(lines)
+                             if e["event"] in ("done", "embedding"))
+            return "exit" in marks and settled == ids
+
+        wait_for(progress, "the burst, the embeds and the scale-down",
+                 [router, collector], timeout=240)
+        parts["burst_and_quiet"] = time.perf_counter() - t_burst
+        router.stdin.close()
+        rc_router = router.wait(timeout=120)
+        reader.join(60)
+        collector.send_signal(signal.SIGTERM)
+        rc_collector = collector.wait(timeout=60)
+        ref_thread.join()
+        parts["fleet"] = time.perf_counter() - t_boot
+
+        # the fleet's own records
+        evs = events_of(lines)
+        settled = sorted(e["id"] for e in evs
+                         if e["event"] in ("done", "embedding"))
+        rejected = [e for e in evs if e["event"] == "rejected"]
+        if rc_router != 0 or settled != ids or rejected:
+            bad.append(f"router: rc {rc_router}, settled {settled}, "
+                       f"rejected {rejected}")
+        if rc_collector != 0:
+            bad.append(f"the collector exited {rc_collector} on SIGTERM")
+        streams = {}
+        for e in evs:
+            if e["event"] == "token":
+                streams.setdefault(e["id"], {})[e["index"]] = e["token"]
+        unequal = [w["id"] for w in gens if not stream_check(
+            streams.get(w["id"], {}), refs[w["id"]], first_generated(w))]
+        if unequal:
+            bad.append(f"streams differ from sample_fast: {unequal}")
+        (router_ev,) = sorted(work.glob("runs/progen-router/*/events.jsonl"))
+        scales = [r for r in read_scale_records(router_ev)
+                  if r["action"] != "hold"]
+        if [r["action"] for r in scales] != ["up", "down"]:
+            bad.append(f"scale decisions {scales}, not up then down")
+        up = next((r for r in scales if r["action"] == "up"), None)
+        down = next((r for r in scales if r["action"] == "down"), None)
+        rlog = log_text(work / "router.log")
+        for want in ("replica1: pid", "(replaying its journal)",
+                     "replica1: retiring (scale-down)",
+                     "replica1: exited rc=0"):
+            if want not in rlog:
+                bad.append(f"the router's log lacks {want!r}")
+        if "replay: resumed" not in log_text(r1dir / "replica.log"):
+            bad.append("replica1 did not boot from its --replay journal")
+        routes = [r for r in jsonl(router_ev) if r.get("ev") == "route"]
+        hops = {}
+        for r in routes:
+            if r.get("status") == "dispatched":
+                hops.setdefault(r["req"], []).append(r["replica"])
+        took = sorted(i for i, h in hops.items() if h[-1] == 1)
+        if not took:
+            bad.append("replica1 took no work")
+        r0_ev, r1_ev = (replica_events(d, work) for d in (r0dir, r1dir))
+        r1_first = min((r["ts"] for r in jsonl(r1_ev)
+                        if r.get("ev") == "req"
+                        and r.get("name") == "first_token"), default=None)
+        series = fleet_series(r for r in TsdbReader(tsdb).read()
+                              if r.get("ev") == "sample")
+        crossing = next((t for t, v in series if v.get(
+            "queue_depth_sum", 0.0) > 3.0), None)
+
+        # the burn, the collector's black box, replica 0's window
+        alerts = jsonl(work / "alerts.jsonl")
+        burning = [a for a in alerts if a.get("kind") == "slo_burn"
+                   and a.get("state") == "burning"]
+        if not burning:
+            bad.append(f"the TTFT objective never burned: {alerts}")
+        dumps = flight.find_dumps(work)
+        dump_info = []
+        for p in dumps:
+            payload = flight.verify_dump(p)  # raises on a torn one
+            dump_info.append(dict(path=str(p.relative_to(work)),
+                                  reason=payload["reason"],
+                                  bytes=p.stat().st_size,
+                                  records=len(payload["records"])))
+        if not any(d["reason"] == "slo_burning"
+                   and d["path"].startswith("collector_flight")
+                   for d in dump_info):
+            bad.append(f"the collector left no slo_burning dump: "
+                       f"{dump_info}")
+        final_ack = json.loads(ack.read_text()) if ack.exists() else {}
+        prof_recs = [r for r in jsonl(r0_ev) if r.get("ev") == "profile"]
+        if [r["op"] for r in prof_recs] != ["started", "stopped"] or \
+                final_ack.get("status") != "stopped":
+            bad.append(f"replica0's window: {prof_recs}, ack {final_ack}")
+        traces = sorted((r0dir / "profiles").glob("*/*.pt.trace.json"))
+        trace_bytes = traces[-1].stat().st_size if traces else None
+        window = prof_recs[-1] if prof_recs else {}
+        window_kernels = (trace_kernel_counts(traces[-1], EMBED_KERNELS)
+                          if traces else {})
+        if not traces or not all(window_kernels.values()):
+            bad.append(f"replica0's window trace names {window_kernels}")
+        vecs = [e for e in evs if e["event"] == "embedding"]
+        if not all(e["dim"] == cfg.dim and np.isfinite(e["values"]).all()
+                   for e in vecs):
+            bad.append("an embedding is malformed")
+        embeds_on = {w["id"]: hops.get(w["id"]) for w in embeds}
+        if any(h != [0] for h in embeds_on.values()):
+            bad.append(f"the embeds ran on {embeds_on}, not replica0 alone")
+        embed_ts = [r["ts"] for r in jsonl(r0_ev) if r.get("ev") == "req"
+                    and r.get("name") == "embed" and r.get("ph") == "b"]
+        opened = [r["ts"] for r in prof_recs if r["op"] == "started"]
+        if not embed_ts or not opened or not \
+                opened[0] <= min(embed_ts) <= max(embed_ts) <= \
+                (prof_recs[-1]["ts"] if len(prof_recs) > 1 else 0):
+            bad.append(f"replica0 ran the embeds at {embed_ts}, outside "
+                       f"its window {[r['ts'] for r in prof_recs]}")
+        if len(receiver.bodies) < 1:
+            bad.append("the receiver got no remote-write batch")
+
+        # the offline tools, on the phase's own files
+        t = time.perf_counter()
+        rc_stitch, out_stitch = run_cli(telemetry_cli.main, [
+            "stitch", str(router_ev), str(r0_ev), str(r1_ev),
+            "--force-hosts", "--out", str(work / "stitched.json")])
+        pids = {e.get("pid") for e in json.loads(
+            (work / "stitched.json").read_text())["traceEvents"]} \
+            if rc_stitch == 0 else set()
+        if rc_stitch != 0 or pids != {0, 1, 2}:
+            bad.append(f"stitch: rc {rc_stitch}, pids {pids}")
+        coll_dumps = [work / d["path"] for d in dump_info
+                      if d["path"].startswith("collector_flight")]
+        rc_export, _ = run_cli(telemetry_cli.main, [
+            "export-trace", str(coll_dumps[0]), "--out",
+            str(work / "dump_trace.json")]) if coll_dumps else (None, "")
+        if rc_export != 0:
+            bad.append(f"export-trace of the collector's dump: {rc_export}")
+        rc_slo, out_slo = run_cli(telemetry_cli.main, [
+            "slo-report", "--objectives", str(work / "slo.toml"), "--tsdb",
+            str(tsdb)])
+        if rc_slo != 2 or "ttft_p95" not in out_slo:
+            bad.append(f"slo-report over the TSDB: rc {rc_slo}")
+        exemplar = next((ex["trace_id"] for a in burning
+                         for exs in (a.get("exemplars") or {}).values()
+                         for ex in exs if ex.get("trace_id")), None)
+        rc_query, out_query = run_cli(telemetry_cli.main, [
+            "query", "--trace", str(exemplar), "--tsdb", str(tsdb),
+            "--events", str(router_ev)])
+        if exemplar is None or rc_query != 0:
+            bad.append(f"query of exemplar {exemplar}: rc {rc_query}")
+        if not peak:
+            bad.append("cli.top never showed both replicas up")
+        tsdb_bytes = TsdbReader(tsdb).total_bytes()
+        parts["offline"] = time.perf_counter() - t
+
+        # the path's launches: each replica's own, from its exposition
+        launches = {k: sum((replica_launches(d / "metrics.prom")[k] or 0)
+                           for d in (r0dir, r1dir))
+                    for k in per_forward(cfg)}
+        want = {k: v * len(embeds) for k, v in per_forward(cfg).items()}
+        if launches != want:
+            bad.append(f"the replicas launched {launches}, not {want}")
+        t = time.perf_counter()
+        ticks = collector_tick_ms(sources, work / "slo.toml", work)
+        cost = recorder_cost(model, work)
+        ring = full_ring_dump(jsonl(router_ev) + jsonl(r0_ev) + jsonl(r1_ev),
+                              work / "ring_flight")
+        parts["in_process"] = time.perf_counter() - t
+    except BaseException:
+        for log in sorted(work.rglob("*.log")):  # the children's side
+            print(f"--- {log.relative_to(work)}:\n"
+                  f"{log_text(log)[-2000:]}", flush=True)
+        raise
+    finally:
+        receiver.close()
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+                try:
+                    p.wait(60)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+        # a router stopped mid-phase may leave the replicas it spawned
+        for pid in re.findall(r"replica\d+: pid (\d+)",
+                              log_text(work / "router.log")):
+            cmd = log_text(Path(f"/proc/{pid}/cmdline"))
+            if "progen_tpu_torch.cli.serve" in cmd and str(work) in cmd:
+                with contextlib.suppress(ProcessLookupError):
+                    os.kill(int(pid), signal.SIGKILL)
+        shutil.rmtree(work, ignore_errors=True)
+    out = dict(
+        card=card, config="configs/model/base.toml", depth=cfg.depth,
+        num_params=cfg.num_params(), generates=len(gens), new_tokens=OBS_NEW,
+        embeds=len(embeds), first_wave=OBS_FIRST_WAVE, slots=1,
+        ttft_threshold_s=OBS_TTFT_THRESHOLD_S,
+        request_s=ref_s[0], references_s=sum(ref_s),
+        queue_crossing_to_up_s=(up["ts"] - crossing)
+        if up and crossing else None,
+        spawn_to_first_token_s=(r1_first - up["ts"])
+        if up and r1_first else None,
+        down_to_exit_s=(marks["exit"] - down["ts"]) if down else None,
+        burn_after_burst_s=burning[0]["ts"] - marks["burst"]
+        if burning else None,
+        collector_tick_ms=ticks, tsdb_bytes=tsdb_bytes,
+        window_s=window.get("duration_s"),
+        window_trace_bytes=trace_bytes,
+        window_export_s=window.get("export_s"),
+        window_kernels=window_kernels, embeds_on=embeds_on,
+        window_opened_after_burst_s=opened[0] - marks["burst"]
+        if opened else None,
+        second_wave_after_burst_s=marks["wave2"] - marks["burst"],
+        started_ack_after_burst_s=marks["ack"]["ts"] - marks["burst"],
+        embeds_ran_after_burst_s=[t - marks["burst"] for t in embed_ts],
+        replica1_took=took, dumps=dump_info, recorder=cost,
+        full_ring_dump=ring,
+        remote_write_batches=len(receiver.bodies),
+        scale=[{k: r[k] for k in ("action", "reason", "current",
+                                  "target", "ts")} for r in scales],
+        peak_sources=[s["name"] for s in peak.get("snapshot", {}).get(
+            "sources", []) if s["up"]], peak_frame=peak.get("frame"),
+        streams_equal=len(gens) - len(unequal), launches=launches,
+        parts_s=parts, seconds=time.perf_counter() - t_phase, budget_s=100)
+    line("fleet_observability", **out)
+    if bad:
+        raise AssertionError("observability: " + "; ".join(bad))
     return out
 
 
@@ -4715,7 +5412,9 @@ def main() -> int:
         dataclasses.replace(cfg, depth=WL_DEPTH), result["score"], card)
     result["grid"] = phase_grid(cfg, card, build["tensor_core_kernels"])
     result["resilience"] = phase_resilience(cfg, card, result)
-    result["fleet"] = phase_fleet(cfg, card)
+    result["fleet"] = phase_fleet(dataclasses.replace(cfg, depth=FLEET_DEPTH),
+                                  card)
+    result["observability"] = phase_observability(cfg, card)
 
     # each kernel's launches, summed over the paths driven with counts:
     # scoring + generation, the 3 train steps, the A3 step, the seqpar
@@ -4724,8 +5423,9 @@ def main() -> int:
     # serving engine's run, the workloads' scorer, scans and n = w
     # scorer (their child processes count apart and are left out), and
     # the grid ranks' steps (single-process comparisons left out), the
-    # resumed cli.train, and the fleet replica's embed forward (counted in
-    # its own process, read from its exposition)
+    # resumed cli.train, the fleet replica's embed forward and phase 14's
+    # replicas' embed forwards (each counted in its own process, read from
+    # its exposition)
     paths = dict(inference=run["launches"], train=train["launches"],
                  halo_step=result["halo_step"]["launches"],
                  seqpar=result["seqpar"]["launches"],
@@ -4734,7 +5434,8 @@ def main() -> int:
                  workloads=result["workloads"]["launches"],
                  grid=result["grid"]["launches"],
                  resilience=result["resilience"]["launches"],
-                 fleet=result["fleet"]["launches"])
+                 fleet=result["fleet"]["launches"],
+                 observability=result["observability"]["launches"])
     counts = {k: sum(c[k] for c in paths.values()) for k in run["launches"]}
     line("launches", **paths, total=counts)
     if not all(counts.values()):

@@ -35,9 +35,18 @@ after closing the open request tracks (reason ``killed``). Metrics
 render under the ``progen_router_`` Prometheus prefix (``--prom_file``,
 ``--prom_port``); route and request records go to
 ``runs/progen-router/<id>/events.jsonl``. ``PROGEN_CHAOS`` arms
-``router/connect``, ``router/dispatch`` and ``router/handoff``. The
-flags of the JAX CLI that are not ported yet are refused with the
-ROADMAP item that carries them.
+``router/connect``, ``router/dispatch``, ``router/handoff`` and
+``autoscaler/decide``. ``--flight_dir`` arms the router's own flight
+recorder; ``--replica_profile_watch`` gives each spawned replica
+``--profile_pin replica{i}/profile.pin`` and ``--flight_dir
+replica{i}/flight``.
+
+``--autoscale POLICY.toml --autoscale_tsdb DIR`` scales a ``--spawn``
+fleet from the fleet collector's TSDB (``fleet/autoscaler.py`` decides,
+this CLI acts): scale-up revives the lowest retired slot or grows the
+fleet, and spawns its replica with ``--replay`` of its journal;
+scale-down retires the highest live link, waits out its in-flight streams
+up to a grace, then sends SIGTERM (the replica's graceful drain).
 
 Run: python -m progen_tpu_torch.cli.router --spawn 2 --checkpoint_path
 ./ckpts
@@ -52,14 +61,16 @@ import select
 import signal
 import subprocess
 import sys
+import time
 
 from progen_tpu_torch.fleet.transport import (
     FramedListener,
     UnixListener,
     parse_hostport,
 )
-from progen_tpu_torch.resilience.chaos import install_from_env
+from progen_tpu_torch.resilience.chaos import ChaosError, install_from_env
 from progen_tpu_torch.serving.router import Router, parse_replica_spec
+from progen_tpu_torch.telemetry import flight as flight_mod
 from progen_tpu_torch.telemetry import (
     prometheus_text,
     spans,
@@ -68,13 +79,6 @@ from progen_tpu_torch.telemetry import (
 )
 from progen_tpu_torch.tracking import JsonlTracker
 from progen_tpu_torch.utils.env import load_env_file
-
-_ITEM_3 = "ROADMAP queue 1 item 3 (the telemetry back end, the flight " \
-    "recorder and the autoscaler)"
-NOT_PORTED = {"--autoscale": _ITEM_3, "--autoscale_tsdb": _ITEM_3,
-              "--replica_profile_watch": _ITEM_3, "--flight_dir": _ITEM_3,
-              "--profile_pin": _ITEM_3, "--profile_out": _ITEM_3}
-
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
@@ -114,6 +118,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "directory every N seconds (serve --reload_watch) "
                         "and honour FLEET_DIR/replica{i}/reload.pin (serve "
                         "--reload_pin); 0 = off")
+    p.add_argument("--replica_profile_watch", action="store_true",
+                   help="spawned replicas watch FLEET_DIR/replica{i}/"
+                        "profile.pin for on-demand torch.profiler windows "
+                        "and arm their flight recorders under "
+                        "FLEET_DIR/replica{i}/flight")
+    p.add_argument("--flight_dir", default=None,
+                   help="arm the ROUTER's own flight recorder: bounded ring "
+                        "of recent routing telemetry, dumped atomically "
+                        "here on crash paths and a second signal")
     p.add_argument("--device", default="cuda",
                    help="the spawned replicas' device: cuda (default) or "
                         "cpu")
@@ -132,6 +145,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--listen_tcp", default=None,
                    help="serve framed TCP at HOST:PORT (PORT 0 = "
                         "ephemeral, the bound port is printed on stderr)")
+    p.add_argument("--autoscale", dest="autoscale_policy", default=None,
+                   help="autoscale the --spawn fleet from the [autoscaler] "
+                        "table of this TOML (configs/serving/"
+                        "autoscaler.toml)")
+    p.add_argument("--autoscale_tsdb", default=None,
+                   help="the fleet collector's ring-TSDB directory the "
+                        "autoscaler reads its signals from (cli.collector "
+                        "--tsdb)")
     p.add_argument("--metrics-every", dest="metrics_every", default=0,
                    type=int,
                    help="log a router/ metrics snapshot (and rewrite "
@@ -142,17 +163,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--prom_port", default=0, type=int,
                    help="serve progen_router_* metrics over HTTP on this "
                         "localhost port (0 = off)")
-    for flag in NOT_PORTED:
-        p.add_argument(flag, nargs="?", const=True, default=None,
-                       help=argparse.SUPPRESS)
     args = p.parse_args(argv)
-    for flag, item in NOT_PORTED.items():
-        if getattr(args, flag[2:]) is not None:
-            p.error(f"{flag} is not ported yet: {item}")
     if args.spawn and args.replica_specs:
         p.error("use --spawn or --replica, not both")
     if not args.spawn and not args.replica_specs:
         p.error("no fleet: pass --replica specs or --spawn N")
+    if args.autoscale_policy and not args.spawn:
+        p.error("--autoscale needs --spawn (the router must own the "
+                "replica processes it scales)")
+    if args.autoscale_policy and not args.autoscale_tsdb:
+        p.error("--autoscale needs --autoscale_tsdb DIR (the fleet "
+                "collector's TSDB is the policy's signal source)")
     return args
 
 
@@ -302,6 +323,88 @@ def front_connections(router, listener, shutdown: dict, publish,
         listener.close()
 
 
+def make_autoscaler(args, router, procs: dict, spawn_replica,
+                    spawned_spec):
+    """The autoscaler's executor over the spawned fleet: the policy
+    (``fleet/autoscaler.py``) decides from the collector's TSDB, the
+    returned tick acts, once a front-loop turn."""
+    from progen_tpu_torch.fleet.autoscaler import (
+        ACTION_DOWN,
+        ACTION_UP,
+        Autoscaler,
+        load_policy,
+    )
+    from progen_tpu_torch.telemetry.tsdb import TsdbReader
+
+    policy = load_policy(args.autoscale_policy)
+    scaler = Autoscaler(policy, reader=TsdbReader(args.autoscale_tsdb))
+    router.rebalance_max = policy.rebalance_max
+    # a retiring replica gets this long to finish its decode slots before
+    # SIGTERM stops waiting (SIGTERM is still a graceful drain there)
+    drain_grace_s = max(10.0, policy.interval_s * 5)
+    state = {"next": 0.0, "draining": {}}  # index -> grace deadline
+    print(f"autoscaler: {policy.min_replicas}..{policy.max_replicas} "
+          f"replicas, tick {policy.interval_s}s, tsdb "
+          f"{args.autoscale_tsdb}", file=sys.stderr)
+
+    def scale_up(n: int) -> None:
+        for _ in range(n):
+            reusable = sorted(
+                link.index for link in router.links
+                if link.retired and link.index not in procs
+                and link.index not in state["draining"])
+            if reusable:
+                i = reusable[0]
+                router.revive_replica(i)
+            else:
+                i = router.add_replica(spawned_spec(len(router.links)))
+            # --replay always: a no-op on a fresh journal; on a reused
+            # slot it resumes what the handoff did not settle (the
+            # handed_off marks rule out serving a request twice)
+            spawn_replica(i, replay=True)
+
+    def scale_down(n: int, now: float) -> None:
+        live = sorted((link.index for link in router.links
+                       if not link.retired), reverse=True)
+        for i in live[:n]:
+            router.retire_replica(i)
+            state["draining"][i] = now + drain_grace_s
+            print(f"replica{i}: retiring (scale-down)", file=sys.stderr)
+
+    def reap_draining(now: float) -> None:
+        for i, deadline in list(state["draining"].items()):
+            entry = procs.get(i)
+            if entry is None:  # already exited and reaped
+                state["draining"].pop(i)
+                continue
+            if router.links[i].inflight and now < deadline:
+                continue  # still streaming: let it finish
+            # SIGTERM is serve's graceful drain (in-flight slots finish,
+            # journal and metrics flush, exit 0); what it sheds as
+            # 'draining' the router re-routes, and a death instead rides
+            # the handoff: no accepted request is lost either way
+            entry[0].terminate()
+            state["draining"].pop(i)
+
+    def tick() -> None:
+        now = time.monotonic()
+        reap_draining(now)
+        if now < state["next"]:
+            return
+        state["next"] = now + policy.interval_s
+        current = sum(1 for link in router.links if not link.retired)
+        try:
+            decision = scaler.decide(current)
+        except ChaosError:
+            return  # autoscaler/decide chaos costs one tick, not the fleet
+        if decision.action == ACTION_UP:
+            scale_up(decision.target - current)
+        elif decision.action == ACTION_DOWN:
+            scale_down(current - decision.target, now)
+
+    return tick
+
+
 def run(argv=None) -> dict:
     """Route until intake closes (EOF on stdin, or a drain signal) and
     every accepted request is settled; returns the final metrics
@@ -332,6 +435,9 @@ def run(argv=None) -> dict:
         if args.replica_reload_watch:
             cmd += ["--reload_watch", str(args.replica_reload_watch),
                     "--reload_pin", os.path.join(rdir, "reload.pin")]
+        if args.replica_profile_watch:
+            cmd += ["--profile_pin", os.path.join(rdir, "profile.pin"),
+                    "--flight_dir", os.path.join(rdir, "flight")]
         if replay:
             cmd += ["--replay", rdir]
         log = open(os.path.join(rdir, "replica.log"), "ab")
@@ -342,13 +448,16 @@ def run(argv=None) -> dict:
               + (" (replaying its journal)" if replay else ""),
               file=sys.stderr)
 
+    def spawned_spec(i: int):
+        rdir = replica_dir(i)
+        return parse_replica_spec(
+            f"sock={os.path.join(rdir, 'serve.sock')},journal={rdir},"
+            f"prom={os.path.join(rdir, 'metrics.prom')}")
+
     if args.spawn:
         specs = []
         for i in range(args.spawn):
-            rdir = replica_dir(i)
-            specs.append(parse_replica_spec(
-                f"sock={os.path.join(rdir, 'serve.sock')},journal={rdir},"
-                f"prom={os.path.join(rdir, 'metrics.prom')}"))
+            specs.append(spawned_spec(i))
             spawn_replica(i)
     else:
         specs = [parse_replica_spec(s) for s in args.replica_specs]
@@ -360,6 +469,8 @@ def run(argv=None) -> dict:
     tracker = JsonlTracker("progen-router", None, "./runs")
     events = spans.EventLog(tracker.path / "events.jsonl")
     spans.configure(sink=events.emit)
+    if args.flight_dir:
+        flight_mod.arm(args.flight_dir, metrics_fn=router.metrics.snapshot)
     print(f"router traces: {events.path}", file=sys.stderr)
 
     def publish(step=None):
@@ -378,12 +489,19 @@ def run(argv=None) -> dict:
     print(f"routing across {len(specs)} replica(s): "
           + ", ".join(s.endpoint for s in specs), file=sys.stderr)
 
+    autoscale = (make_autoscaler(args, router, procs, spawn_replica,
+                                 spawned_spec)
+                 if args.autoscale_policy else None)
     shutdown = {"flag": False}
 
     def request_drain(signum, frame):
         if shutdown["flag"]:
             print(f"signal {signum} again: exiting now", file=sys.stderr)
-            router.close_tracks("killed")
+            try:
+                router.close_tracks("killed")
+            except Exception:
+                pass  # a torn trace line beats a hung exit
+            flight_mod.dump_now("killed", note=f"signal {signum}")
             sys.stderr.flush()
             os._exit(1)
         shutdown["flag"] = True
@@ -405,9 +523,13 @@ def run(argv=None) -> dict:
             log.close()
             print(f"replica{i}: exited rc={proc.returncode}",
                   file=sys.stderr)
+            # a retired replica's exit is the scale-down completing, not
+            # a death to heal
             link = router.links[i]
             if args.respawn and not link.up and not link.retired:
                 spawn_replica(i, replay=True)
+        if autoscale is not None:
+            autoscale()
 
     old = {s: signal.signal(s, request_drain)
            for s in (signal.SIGTERM, signal.SIGINT)}
@@ -441,6 +563,7 @@ def run(argv=None) -> dict:
                 proc.kill()
                 proc.wait()
             log.close()
+        flight_mod.disarm()
         spans.configure()
         events.close()
         tracker.finish()

@@ -75,9 +75,13 @@ cadence and at exit, and at least every ``--heartbeat`` seconds when
 set), with the process's own kernel launches as
 ``progen_serve_kernel_launches_<id>`` gauges (the embed forwards' A1,
 L1 and L2 on the card; the plain versions on the CPU count none);
-``--prom_port`` serves it over HTTP on localhost. The flags of the
-JAX CLI that are not ported yet are refused with the ROADMAP item that
-carries them.
+``--prom_port`` serves it over HTTP on localhost. ``--flight_dir``
+arms the flight recorder (``telemetry/flight.py``: a ring of recent
+records, dumped atomically on a chaos kill, a stall escalation, an SLO
+``burning`` edge, an unhandled exception or a second signal);
+``--profile_pin FILE`` opens a bounded ``torch.profiler`` window on the
+live loop when a token is written there (polled between decode steps,
+answered through FILE.ack, traces under ``--profile_out``).
 
 Run: python -m progen_tpu_torch.cli.serve --checkpoint_path ./ckpts
 """
@@ -114,6 +118,7 @@ from progen_tpu_torch.serving import (
     WeightReloader,
     replay_into,
 )
+from progen_tpu_torch.telemetry import flight as flight_mod
 from progen_tpu_torch.telemetry import (
     prometheus_text,
     spans,
@@ -125,12 +130,6 @@ from progen_tpu_torch.workloads.infill import (
     infill_request_arrays,
     parse_template,
 )
-
-_ITEM_3 = "ROADMAP queue 1 item 3 (the telemetry back end and the flight " \
-    "recorder)"
-NOT_PORTED = {"--flight_dir": _ITEM_3, "--profile_pin": _ITEM_3,
-              "--profile_out": _ITEM_3}
-
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
@@ -213,15 +212,23 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "suspended) and answers through FILE.ack; at start "
                         "a pinned checkpoint is restored directly. Implies "
                         "--reload_watch 2 when that is unset")
+    p.add_argument("--flight_dir", default=None,
+                   help="arm the flight recorder: keep the last "
+                        "events/spans/requests in a bounded in-memory ring "
+                        "and dump an atomic flight-<host>-<ts>.json here on "
+                        "crash paths (chaos kill, stall escalation, "
+                        "unhandled exception, second kill signal)")
+    p.add_argument("--profile_pin", dest="profile_pin_path", default=None,
+                   help="profile.pin control file: when it carries a token "
+                        "(optionally '<token> <seconds>'), start a bounded "
+                        "torch.profiler trace window on the live process "
+                        "and answer through FILE.ack — no restart. Polled "
+                        "every 2s between decode steps")
+    p.add_argument("--profile_out", default=None,
+                   help="directory for on-demand profiler trace windows "
+                        "(default: <profile_pin dir>/profiles)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    for flag in NOT_PORTED:
-        p.add_argument(flag, nargs="?", const=True, default=None,
-                       help=argparse.SUPPRESS)
-    args = p.parse_args(argv)
-    for flag, item in NOT_PORTED.items():
-        if getattr(args, flag[2:]) is not None:
-            p.error(f"{flag} is not ported yet: {item}")
-    return args
+    return p.parse_args(argv)
 
 
 def parse_request(line: str, defaults: dict):
@@ -604,6 +611,22 @@ def run(argv=None) -> dict:
     spans.configure(sink=events.emit)
     print(f"request traces: {events.path}", file=sys.stderr)
 
+    # forensics: the black-box ring and the on-demand profiler window,
+    # each armed only when asked
+    if args.flight_dir:
+        flight_mod.arm(args.flight_dir, metrics_fn=sched.metrics.snapshot)
+        print(f"flight recorder armed: dumps to {args.flight_dir}",
+              file=sys.stderr)
+    prof_watcher = None
+    if args.profile_pin_path:
+        prof_out = args.profile_out or os.path.join(
+            os.path.dirname(args.profile_pin_path) or ".", "profiles")
+        prof_watcher = flight_mod.ProfilePinWatcher(
+            args.profile_pin_path, prof_out,
+            profiler=flight_mod.TorchProfiler(cuda=dev.type == "cuda"))
+        print(f"profile pin watched: {args.profile_pin_path} "
+              f"(windows to {prof_out})", file=sys.stderr)
+
     beat = {"last": time.monotonic()}
 
     def publish(step=None):
@@ -642,6 +665,8 @@ def run(argv=None) -> dict:
                       file=sys.stderr)
         if reload_watch:
             reloader.poll_watch(reload_watch)
+        if prof_watcher is not None:
+            prof_watcher.poll_watch()
         name = reloader.maybe_commit()
         if name is not None:
             print(f"reload: now serving {name} (load + commit "
@@ -671,7 +696,12 @@ def run(argv=None) -> dict:
     def request_drain(signum, frame):
         if shutdown["flag"]:
             print(f"signal {signum} again: exiting now", file=sys.stderr)
-            sched.close_tracks("killed")
+            try:
+                sched.close_tracks("killed")
+            except Exception:
+                pass  # a torn trace line beats a hung exit
+            # last act: the black box (atomic, and dump_now never raises)
+            flight_mod.dump_now("killed", note=f"signal {signum}")
             sys.stderr.flush()
             os._exit(1)
         shutdown["flag"] = True
@@ -710,6 +740,9 @@ def run(argv=None) -> dict:
         publish()
         if prom_srv is not None:
             prom_srv.shutdown()
+        if prof_watcher is not None:
+            prof_watcher.close()  # flush an open profiler window
+        flight_mod.disarm()
         spans.configure()
         events.close()
         tracker.finish()

@@ -17,9 +17,15 @@ there as a Chrome trace), ``--stall_timeout``/``--stall_escalate_after``
 (the stall watchdog), ``--anomaly_factor``/``--anomaly_patience`` (the
 loss sentinel and its rollback) and ``--prom_file``/``--prom_port`` (the
 registry's Prometheus exposition, prefix ``progen_train_``, on the
-coordinator). Not accepted yet: ``--flight_dir``, ``--profile_pin`` and
-the clock beacons (ROADMAP queue 1 item 3), and ``--hardware_rng`` (a
-JAX PRNG switch, nothing to port).
+coordinator), ``--flight_dir`` (the flight recorder: a ring of recent
+telemetry, dumped on stall escalation, anomaly rollback, chaos kill or an
+unhandled exception) and ``--profile_pin`` (a ``torch.profiler`` window
+on the live loop, started by a token written to the pin file and polled
+between steps while no ``--profile_dir`` window is open; its traces go
+to ``profiles/`` beside the pin). Every rank emits one ``clock_beacon``
+record a step, right after the loss fetch, so ``cli.telemetry stitch``
+aligns the ranks' clocks. Not accepted: ``--hardware_rng`` (a JAX PRNG
+switch, nothing to port).
 
 The grid: under ``torchrun`` (``WORLD_SIZE`` > 1) every process joins
 the process group (``parallel.groups.initialize_distributed``; a failed
@@ -113,6 +119,7 @@ from progen_tpu_torch.resilience.anomaly import (
     PoisonBisector,
     consistent_flag,
 )
+from progen_tpu_torch.telemetry import flight as flight_mod
 from progen_tpu_torch.telemetry import (
     GoodputLedger,
     StallWatchdog,
@@ -125,6 +132,7 @@ from progen_tpu_torch.telemetry import (
     step_print,
     write_prometheus,
 )
+from progen_tpu_torch.training import emit_clock_beacon
 from progen_tpu_torch.training.optimizer import SCHEDULES, OptimizerConfig
 from progen_tpu_torch.training.step import (
     init_train_state,
@@ -267,6 +275,17 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--prom_port", default=0, type=int,
                    help="serve the same train-loop exposition over HTTP on "
                         "this localhost port (0 = off)")
+    p.add_argument("--flight_dir", default=None,
+                   help="arm the flight recorder: bounded in-memory ring of "
+                        "recent telemetry, dumped atomically here on stall "
+                        "escalation, anomaly rollback, chaos kill, or an "
+                        "unhandled exception")
+    p.add_argument("--profile_pin", dest="profile_pin_path", default=None,
+                   help="profile.pin control file: a token written here "
+                        "starts a bounded torch.profiler window on the LIVE "
+                        "loop (acked through FILE.ack) — unlike "
+                        "--profile_dir's fixed steps 2-4, this profiles the "
+                        "moment something looks wrong")
     return p
 
 
@@ -453,6 +472,18 @@ def run(argv=None) -> dict:
     telemetry.configure(sink=tracker.log_event)
     ledger = GoodputLedger()
 
+    # forensics: the black box rides the telemetry tap; the profile pin
+    # is polled once per optimizer step beside the watchdog's beat
+    if args.flight_dir:
+        flight_mod.arm(args.flight_dir, metrics_fn=reg.snapshot)
+    prof_watcher = None
+    if args.profile_pin_path:
+        prof_watcher = flight_mod.ProfilePinWatcher(
+            args.profile_pin_path,
+            os.path.join(os.path.dirname(args.profile_pin_path) or ".",
+                         "profiles"),
+            profiler=flight_mod.TorchProfiler(cuda=dev.type == "cuda"))
+
     def render_prom() -> str:
         # goodput and the card's memory enter as gauges at render time,
         # so the file and the HTTP exposition agree
@@ -599,6 +630,10 @@ def run(argv=None) -> dict:
             pending = None
             with ledger.track(p_bucket):
                 loss = float(p_metrics["last_micro_loss"])
+            # the fetch above is the post-collective barrier every rank
+            # just crossed together: beacon it, so `telemetry stitch` can
+            # align the ranks' clocks on this step boundary
+            emit_clock_beacon(p_step)
             grad_norm = float(p_metrics["grad_norm"])
             skipped = int(p_metrics.get("skipped", 0))  # 1f1b: no gate
             # the chaos perturbation point: PROGEN_CHAOS="train/loss:nan@3"
@@ -682,6 +717,10 @@ def run(argv=None) -> dict:
                 pending = (global_step, metrics, step_bucket, ms)
                 if watchdog is not None:
                     watchdog.beat()
+                if prof_watcher is not None and prof is None:
+                    # one torch.profiler session at a time: the pin waits
+                    # out --profile_dir's window
+                    prof_watcher.poll_watch()
                 if args.async_checkpoint:
                     # a failed background write raises here, at the next
                     # step, with a ckpt_commit_failed event
@@ -852,6 +891,9 @@ def run(argv=None) -> dict:
                 watchdog.stop()
             if prof is not None:
                 stop_profile()
+            if prof_watcher is not None:
+                prof_watcher.close()  # flush an open window
+            flight_mod.disarm()
             # detach the span sink before the tracker closes its files
             telemetry.configure()
         finally:

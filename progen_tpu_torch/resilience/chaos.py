@@ -89,6 +89,7 @@ from progen_tpu_torch.telemetry.registry import get_registry
 KNOWN_TARGETS = frozenset({
     # spans
     "ckpt/finalize", "ckpt/restore", "ckpt/save",
+    "flight/dump", "profile/window",
     "router/handoff",
     "serve/embed", "serve/prefill", "serve/prefill_chunk", "serve/reload",
     "serve/reload_commit",
@@ -99,8 +100,8 @@ KNOWN_TARGETS = frozenset({
     # perturb sites
     "train/loss",
     # direct maybe_inject sites
-    "router/connect", "router/dispatch", "score/batch", "serve/decode",
-    "transport/accept", "transport/frame",
+    "autoscaler/decide", "router/connect", "router/dispatch",
+    "score/batch", "serve/decode", "transport/accept", "transport/frame",
 })
 
 _WARNED_UNKNOWN: set = set()

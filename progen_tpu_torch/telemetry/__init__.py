@@ -1,5 +1,5 @@
 """Telemetry for the port: copies of the JAX package's ``telemetry/``
-modules that the train loop, serving and the workloads use.
+modules.
 
   * ``span("ckpt/save")`` — begin/end records to a crash-safe
     ``events.jsonl``, run under ``torch.profiler.record_function`` so a
@@ -15,8 +15,17 @@ modules that the train loop, serving and the workloads use.
   * ``MetricsRegistry`` / ``get_registry`` — the process-wide counters,
     gauges and timings (``registry.py``).
 
-``trace.py`` holds the JSONL reader the serving journal uses; the JAX
-package's trace export, stitching and SLO modules are not ported yet.
+  * ``build_trace`` / ``export_trace`` — events.jsonl to Chrome Trace
+    Event / Perfetto JSON (``trace.py``, the ``export-trace`` command);
+  * ``stitch_trace`` / ``clock_offsets`` / ``emit_clock_beacon`` — N
+    processes' event files to one trace on a common corrected clock
+    (``stitch.py``);
+  * ``slo`` — objectives from TOML, multi-window burn rates and the
+    slo-report gate; ``tsdb``, ``collector``, ``remote_write``,
+    ``alerts``, ``alert_router`` and ``console`` — the fleet metrics
+    back end behind ``cli.collector`` and ``cli.top``;
+  * ``flight`` — the flight recorder and the ``profile.pin`` profiler
+    windows.
 """
 
 from progen_tpu_torch.telemetry.goodput import (
@@ -33,6 +42,13 @@ from progen_tpu_torch.telemetry.prometheus import (
     write_prometheus,
 )
 from progen_tpu_torch.telemetry.registry import MetricsRegistry, get_registry
+from progen_tpu_torch.telemetry.slo import (
+    SloConfig,
+    SloWatch,
+    evaluate as evaluate_slos,
+    exit_code as slo_exit_code,
+    load_objectives,
+)
 from progen_tpu_torch.telemetry.spans import (
     EventLog,
     Telemetry,
@@ -42,6 +58,13 @@ from progen_tpu_torch.telemetry.spans import (
     span,
     step_print,
 )
+from progen_tpu_torch.telemetry.stitch import (
+    clock_offsets,
+    emit_clock_beacon,
+    stitch_streams,
+    stitch_trace,
+)
+from progen_tpu_torch.telemetry.trace import build_trace, export_trace
 from progen_tpu_torch.telemetry.watchdog import StallWatchdog
 
 __all__ = [
@@ -64,4 +87,15 @@ __all__ = [
     "start_prometheus_server",
     "MetricsRegistry",
     "get_registry",
+    "build_trace",
+    "export_trace",
+    "clock_offsets",
+    "emit_clock_beacon",
+    "stitch_streams",
+    "stitch_trace",
+    "SloConfig",
+    "SloWatch",
+    "evaluate_slos",
+    "slo_exit_code",
+    "load_objectives",
 ]

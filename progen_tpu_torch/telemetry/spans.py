@@ -46,6 +46,13 @@ def host_index() -> int:
 # injector registers here; an empty list is a no-op.
 SPAN_ENTRY_HOOKS: list = []
 
+# emit taps: called with every record that reaches Telemetry.emit, before
+# the sink check, so a tap sees records on a process without a sink too.
+# The flight recorder (telemetry/flight.py) registers here. A tap runs on
+# the training and serving hot path; one that raises is swallowed. An
+# empty list is a no-op.
+EMIT_TAPS: list = []
+
 
 class EventLog:
     """Crash-safe append-only JSONL sink: one record per line, flushed
@@ -92,6 +99,11 @@ class Telemetry:
         broken sink is dropped rather than raised into the caller's
         loop."""
         record.setdefault("pid", host_index())
+        for tap in EMIT_TAPS:
+            try:
+                tap(record)
+            except Exception:
+                pass
         sink = self._sink
         if sink is None:
             return

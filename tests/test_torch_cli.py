@@ -145,8 +145,7 @@ def test_new_asks_then_resets(ws, monkeypatch, answer):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--hardware_rng"], ["--profile_pin", "p"], ["--flight_dir", "f"],
-    ["--mesh", "2"],
+    ["--hardware_rng"], ["--mesh", "2"],
 ], ids=lambda f: f[0])
 def test_unported_flag_is_rejected(ws, capsys, flag):
     with pytest.raises(SystemExit) as exc:
@@ -154,6 +153,14 @@ def test_unported_flag_is_rejected(ws, capsys, flag):
     assert exc.value.code == 2
     assert "unrecognized arguments" in capsys.readouterr().err
     assert not (ws / "ck_flag").exists()
+
+
+@pytest.mark.parametrize("argv,attr,want", [
+    (["--flight_dir", "f"], "flight_dir", "f"),
+    (["--profile_pin", "p"], "profile_pin_path", "p"),
+], ids=lambda a: a[0] if isinstance(a, list) else None)
+def test_forensics_flag_is_accepted(argv, attr, want):
+    assert getattr(ttrain.parse_args(argv), attr) == want
 
 
 @pytest.mark.parametrize("cli", ["train", "eval", "sample"])

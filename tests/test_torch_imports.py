@@ -72,7 +72,13 @@ def test_package_has_the_slice_modules():
                 "telemetry.goodput", "telemetry.watchdog",
                 "resilience.anomaly", "profiling", "utils", "utils.env",
                 "fleet", "fleet.transport", "serving.reload",
-                "serving.router", "cli.router"):
+                "serving.router", "cli.router", "telemetry.trace",
+                "telemetry.stitch", "telemetry.slo",
+                "telemetry.remote_write", "telemetry.tsdb",
+                "telemetry.alerts", "telemetry.alert_router",
+                "telemetry.collector", "telemetry.console",
+                "telemetry.flight", "fleet.autoscaler", "cli.telemetry",
+                "cli.collector", "cli.top", "training"):
         assert f"progen_tpu_torch.{mod}" in names
 
 

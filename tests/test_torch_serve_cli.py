@@ -5,9 +5,8 @@ protocol end to end in a subprocess (token, done, embedding and rejected
 lines, an infill template, EOF drains and exits 0), a run SIGKILLed
 mid-stream with ``--journal_dir`` followed by a ``--replay`` run (every
 accepted id settled exactly once, the streams those of ``sample_fast``),
-the resume wire's fields, the fleet flags accepted, the release control
-line over --socket, and every flag of the JAX CLI that is not ported
-refused with its ROADMAP item."""
+the resume wire's fields, the fleet and forensics flags accepted, and
+the release control line over --socket."""
 
 import json
 import re
@@ -206,13 +205,13 @@ def test_accepts_the_fleet_flags(argv, attr, want):
     assert getattr(serve.parse_args(argv), attr) == want
 
 
-@pytest.mark.parametrize("flag", sorted(serve.NOT_PORTED))
-def test_refuses_unported_flags(flag, capsys):
-    with pytest.raises(SystemExit) as exc:
-        serve.parse_args([flag, "1"])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert f"{flag} is not ported yet: ROADMAP queue 1 item" in err
+@pytest.mark.parametrize("argv,attr,want", [
+    (["--flight_dir", "/tmp/f"], "flight_dir", "/tmp/f"),
+    (["--profile_pin", "/tmp/p.pin"], "profile_pin_path", "/tmp/p.pin"),
+    (["--profile_out", "/tmp/prof"], "profile_out", "/tmp/prof"),
+])
+def test_accepts_the_forensics_flags(argv, attr, want):
+    assert getattr(serve.parse_args(argv), attr) == want
 
 
 def test_runs_on_the_card_unless_asked(ckpt, monkeypatch):

@@ -322,7 +322,6 @@ def test_serve_parses_int8_both_ways():
     assert serve.parse_args(["--int8"]).quantize_int8
     assert not serve.parse_args(["--no-int8"]).quantize_int8
     assert not serve.parse_args([]).quantize_int8
-    assert "--int8" not in serve.NOT_PORTED
 
 
 @pytest.mark.parametrize("cli", ["batch_score", "scan", "convert",
