@@ -290,7 +290,37 @@ Phases, one line each:
      bytes, the window's seconds, trace bytes and export seconds, each
      flight dump's bytes, and, in this process on a 4-slot engine of the
      same weights, the pool's step time with the recorder armed against
-     without it and a full ring's dump ms.
+     without it and a full ring's dump ms;
+ 15. deploy, continuous deployment at base.toml whole in bfloat16, in
+     build/chip_smoke_deploy/ (removed afterwards): three params-only
+     checkpoints, A (random from seed 0), B (A plus a seeded relative
+     noise of 1e-3) and C (A with its to-logits weight x4), B and C staged
+     and published later by a rename; two cli.serve --reload_pin
+     replicas at one slot (unix sockets) behind cli.router (--prom_file);
+     cli.deploy (policy: interval 0.5 s, max_ppl_regression_pct 1.0,
+     batch 8) with --probe_fasta (16 proteins of phase 8's synthetic
+     FASTA at seed + 1) and --alerts, started under
+     PROGEN_CHAOS=deploy/promote:kill@1 before any candidate: it adopts A.
+     Wave 1 (2 generates of 32 new tokens), then B is published and wave
+     2 sent; the controller canaries B on replica0, probes A and B, and
+     dies entering its first promote (rc -9). A restart replays the
+     ledger, leaves the canary's pin as it is, promotes replica1 and
+     converges on B: both replicas' progen_serve_checkpoint_digest and
+     the router's replica{i}_checkpoint_digest must equal digest_gauge of
+     B's checkpoint_digest. Wave 3, then C is published: canaried,
+     probed and rolled back on ppl_regression, with one deploy_rollback
+     alert, never retried, every digest gauge back on B. It fails unless
+     the ledger holds exactly that sequence of decisions, each request
+     settles once, waves 1 and 3 equal sample_fast on A and on B, each
+     ledger probe equals probe_stats over its shards and its ppl's log
+     lies within 1e-2 nats of the same sequences' token-weighted NLL
+     under a float32 model on the plain path, and the restarted
+     controller's closing line reports C's probe's launches (two
+     forwards: A1 48, L1 96, L2 4). It prints the saves' seconds, each
+     replica's boot, each pin's seconds to its committed ack, each
+     probe's seconds and sequences/s, observed -> converged and observed
+     -> rollback, and the restart's seconds to its replay and its first
+     action.
 
 Phase 2 also holds A4 (forward and both backwards, with a halo) against
 its plain versions at long8k's shard shapes with 2 shards, and runs the
@@ -5334,6 +5364,448 @@ def phase_observability(cfg, card: str, device: str = "cuda") -> dict:
     return out
 
 
+# phase 15: continuous deployment at base.toml whole, in bfloat16: the
+# deploy controller canaries, probes and promotes B across two one-slot
+# replicas behind cli.router (SIGKILLed mid-promote and restarted), then
+# canaries, probes and rolls back C
+DEPLOY_NEW = 32  # new tokens of each generate request
+DEPLOY_PROBES = 16  # held-out proteins of the probe (2 batches of 8)
+DEPLOY_NOISE = 1e-3  # B: A plus a seeded relative noise of this size
+DEPLOY_LOGITS_SCALE = 4.0  # C: A with its to-logits weight times this
+DEPLOY_POLICY = """[deploy]
+interval_s = 0.5
+max_ppl_regression_pct = 1.0
+probe_batch_size = 8
+"""
+# the probe's ppl against a float32 forward of the same sequences on the
+# plain path: the token-weighted mean NLL within phase 3's per-sequence
+# NLL tolerance (check_scores: 1e-2 nats)
+PROBE_NLL_ATOL = 1e-2
+
+
+def deploy_wave(wave: int) -> list:
+    """The 2 generate lines of a wave: DEPLOY_NEW new tokens each."""
+    primes = [PROTEINS[2 * wave + i][8:24] for i in range(2)]
+    return [{"id": f"w{wave}-{i}", "prime": p, "length": 1 + len(p)
+             + DEPLOY_NEW, "seed": 700 + 10 * wave + i}
+            for i, p in enumerate(primes)]
+
+
+def probe_fasta(path: Path, work: Path) -> list:
+    """DEPLOY_PROBES proteins of phase 8's synthetic FASTA (its seed + 1,
+    so none was trained on) into ``path``; their scorer records."""
+    from progen_tpu_torch.data.fasta import parse_fasta
+    from progen_tpu_torch.workloads import fasta_records
+
+    full = work / "all.fasta"
+    write_fasta(full, CLI_SEED + 1)
+    with path.open("w") as f:
+        for desc, seq in list(parse_fasta(str(full)))[:DEPLOY_PROBES]:
+            f.write(f">{desc}\n{seq}\n")
+    return list(fasta_records(str(path)))
+
+
+def probe_reference(model32, records) -> float:
+    """The token-weighted mean NLL of ``records`` under a float32 model on
+    the plain path, batched and padded as the scorer does (base has gMLP
+    layers: every batch at seq_len)."""
+    from progen_tpu_torch.data.dataset import collate as collate_records
+    from progen_tpu_torch.training.loss import sequence_scores
+
+    seq_len = model32.config.seq_len
+    total, tokens = 0.0, 0
+    with torch.inference_mode(), plain_path():
+        for i in range(0, len(records), 8):
+            rows = [raw for _, raw in records[i:i + 8]]
+            data = torch.from_numpy(collate_records(rows, seq_len)).long()
+            data = data.to(model32.device)
+            nll, _, mask = sequence_scores(model32(data[:, :-1]),
+                                           data[:, 1:])
+            n = mask.sum(-1)
+            total += float((nll.double() * n.double()).sum())
+            tokens += int(n.sum())
+    return total / tokens
+
+
+class PinWatch:
+    """A thread that notes, every 50 ms, each replica's pin content and
+    its ack: (time, replica, "pin"/"ack", content) on every change."""
+
+    def __init__(self, rdirs):
+        import threading
+
+        self.rdirs, self.events, self._stop = rdirs, [], threading.Event()
+        self._last = {}
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.is_set():
+            now = time.time()
+            for i, rdir in enumerate(self.rdirs):
+                for kind, name in (("pin", "reload.pin"),
+                                   ("ack", "reload.pin.ack")):
+                    text = log_text(rdir / name).strip()
+                    if text and self._last.get((i, kind)) != text:
+                        self._last[(i, kind)] = text
+                        self.events.append((now, i, kind, text))
+            self._stop.wait(0.05)
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(5)
+
+    def pin_to_ack(self) -> list:
+        """Each pin write and the seconds until its committed ack."""
+        out = []
+        for t, i, kind, text in self.events:
+            if kind != "pin":
+                continue
+            acked = next((t2 for t2, i2, k2, a in self.events
+                          if i2 == i and k2 == "ack" and t2 >= t
+                          and json.loads(a).get("pin") == text
+                          and json.loads(a).get("status") == "committed"),
+                         None)
+            out.append(dict(replica=i, pin=text, ack_s=None if acked is None
+                            else acked - t))
+        return out
+
+
+def phase_deploy(cfg, card: str, device: str = "cuda") -> dict:
+    """Phase 15 (see the module docstring)."""
+    import math
+    import shutil
+    import threading
+
+    from progen_tpu_torch import ProGen
+    from progen_tpu_torch.checkpoint import checkpoint_digest, digest_gauge
+    from progen_tpu_torch.deploy import probe_stats, read_ledger
+    from progen_tpu_torch.telemetry.trace import iter_jsonl
+
+    t_phase = time.perf_counter()
+    work = REPO / "build" / "chip_smoke_deploy"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ck, stage, deploy_dir = work / "ck", work / "staging", work / "deploy"
+    rdirs = [work / "r0", work / "r1"]
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    procs, bad, parts, marks = [], [], {}, {}
+    watch = None
+    waves = [deploy_wave(w) for w in (1, 2, 3)]
+    try:
+        # A, published before the fleet starts; B and C staged meanwhile
+        t = time.perf_counter()
+        model_a = ProGen(cfg, device=device, seed=0).eval()
+        names = {"A": save_params(stage, model_a)}
+        # hard links: A stays in the staging root, so B's and C's names
+        # there come after it
+        shutil.copytree(stage / names["A"], ck / names["A"],
+                        copy_function=os.link)
+        parts["save_a"] = time.perf_counter() - t
+        t_boot = time.perf_counter()
+        for rdir in rdirs:
+            procs.append(spawn_serve(
+                ck, rdir, device, "--socket", str(rdir / "serve.sock"),
+                "--heartbeat", "0.5", "--reload_watch", "0.5",
+                "--reload_pin", str(rdir / "reload.pin")))
+        boot_s = [None, None]
+
+        def boots():  # each replica's spawn -> "listening on", while the
+            # references below take this thread
+            while None in boot_s and all(p.poll() is None for p in procs):
+                for i, rdir in enumerate(rdirs):
+                    if boot_s[i] is None and listening(rdir):
+                        boot_s[i] = time.perf_counter() - t_boot
+                time.sleep(0.05)
+
+        boot_thread = threading.Thread(target=boots, daemon=True)
+        boot_thread.start()
+        t = time.perf_counter()
+        gen = torch.Generator(device="cpu").manual_seed(15)
+        sd_b = {k: v + DEPLOY_NOISE * v * torch.randn(
+            v.shape, generator=gen).to(v) for k, v in
+            model_a.state_dict().items()}
+        model_b = ProGen(cfg, device=device, seed=None).eval()
+        model_b.load_state_dict(sd_b)
+        names["B"] = save_params(stage, model_b)
+        sd_c = dict(model_a.state_dict())
+        sd_c["to_logits.weight"] = sd_c["to_logits.weight"] * \
+            DEPLOY_LOGITS_SCALE
+        model_c = ProGen(cfg, device=device, seed=None).eval()
+        model_c.load_state_dict(sd_c)
+        names["C"] = save_params(stage, model_c)
+        parts["save_b_c"] = time.perf_counter() - t
+        if not names["A"] < names["B"] < names["C"]:
+            raise AssertionError(f"checkpoint names out of order: {names}")
+        letter = {v: k for k, v in names.items()}
+        # the references, while the replicas boot: sample_fast on A (wave
+        # 1) and B (wave 3); the probe set's float32 NLL under each
+        t = time.perf_counter()
+        refs = {w["id"]: fleet_reference(model_a, w) for w in waves[0]}
+        refs.update({w["id"]: fleet_reference(model_b, w)
+                     for w in waves[2]})
+        records = probe_fasta(work / "probe.fasta", work)
+        model32 = ProGen(dataclasses.replace(cfg, dtype="float32"),
+                         device=device, seed=None).eval()
+        nll32 = {}
+        for key, model in (("A", model_a), ("B", model_b), ("C", model_c)):
+            model32.load_state_dict(model.state_dict())
+            nll32[key] = probe_reference(model32, records)
+        del model32, model_c
+        parts["references"] = time.perf_counter() - t
+        wait_for(lambda: None not in boot_s, "the replicas listen", procs)
+        boot_thread.join()
+        parts["boot_wait"] = time.perf_counter() - t_boot
+        watch = PinWatch(rdirs)
+
+        lines = []
+        router = subprocess.Popen(
+            [sys.executable, "-m", "progen_tpu_torch.cli.router",
+             *itertools.chain.from_iterable(
+                 ("--replica", f"sock={r / 'serve.sock'},journal={r},"
+                  f"prom={r / 'metrics.prom'}") for r in rdirs),
+             "--prom_file", str(work / "router.prom"), "--metrics-every",
+             "5"],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=open(work / "router.log", "ab"), text=True, cwd=work,
+            env=env)
+        procs.append(router)
+        reader = start_reader(router.stdout, lines)
+        (work / "policy.toml").write_text(DEPLOY_POLICY)
+        deploy_cmd = [
+            sys.executable, "-m", "progen_tpu_torch.cli.deploy", "--device",
+            device, "--checkpoint_path", str(ck), "--deploy_dir",
+            str(deploy_dir), "--probe_fasta", str(work / "probe.fasta"),
+            "--policy", str(work / "policy.toml"), "--alerts",
+            str(work / "alerts.jsonl"),
+            *itertools.chain.from_iterable(
+                ("--replica", f"replica{i}={r}")
+                for i, r in enumerate(rdirs))]
+        ctl_log = work / "controller.log"
+
+        def controller(chaos=""):
+            proc = subprocess.Popen(
+                deploy_cmd, stdin=subprocess.DEVNULL,
+                stdout=subprocess.DEVNULL, stderr=open(ctl_log, "ab"),
+                cwd=work, env=dict(env, PROGEN_CHAOS=chaos))
+            procs.append(proc)
+            return proc
+
+        def ledger():
+            return read_ledger(deploy_dir / "deploy.jsonl")
+
+        def has(op, key):
+            return any(r["op"] == op and r["ckpt"] == names[key]
+                       for r in ledger())
+
+        def settled(ids):
+            done = [e["id"] for e in events_of(lines)
+                    if e["event"] in ("done", "rejected")]
+            return set(ids) <= set(done)
+
+        def send(wave):
+            router.stdin.write("".join(json.dumps(w) + "\n" for w in wave))
+            router.stdin.flush()
+
+        t_run = time.perf_counter()
+        ctl1 = controller("deploy/promote:kill@1")
+        wait_for(lambda: has("converged", "A"), "the adoption of A",
+                 [ctl1, router])
+        send(waves[0])
+        wait_for(lambda: settled([w["id"] for w in waves[0]]), "wave 1",
+                 [router])
+        (stage / names["B"]).rename(ck / names["B"])  # publish B
+        send(waves[1])
+        rc_kill = ctl1.wait(timeout=600)
+        if rc_kill != -9:
+            raise AssertionError(f"the controller exited {rc_kill}, not by "
+                                 "its SIGKILL at deploy/promote")
+        wait_for(lambda: settled([w["id"] for w in waves[1]]), "wave 2",
+                 [router])
+        canary_pin = (rdirs[0] / "reload.pin").stat().st_mtime_ns
+        n_banner = log_text(ctl_log).count("deploy: 2 replica(s)")
+        t_restart = time.perf_counter()
+        ctl2 = controller()
+        wait_for(lambda: log_text(ctl_log).count("deploy: 2 replica(s)")
+                 > n_banner, "the restart's replay", [ctl2])
+        marks["replayed"] = time.perf_counter() - t_restart
+        wait_for(lambda: has("promote", "B"), "the resumed promote",
+                 [ctl2, router])
+        marks["first_action"] = time.perf_counter() - t_restart
+        wait_for(lambda: has("converged", "B"), "the convergence on B",
+                 [ctl2, router], timeout=300)
+        want_b = digest_gauge(checkpoint_digest(ck / names["B"]))
+
+        def gauges():
+            return ([prom_gauge(r / "metrics.prom",
+                                "progen_serve_checkpoint_digest")
+                     for r in rdirs],
+                    [prom_gauge(work / "router.prom",
+                                f"progen_router_replica{i}_checkpoint_digest")
+                     for i in range(2)])
+
+        wait_for(lambda: gauges() == ([want_b] * 2, [want_b] * 2),
+                 "every digest gauge on B", [ctl2, router], timeout=60)
+        gauges_b = gauges()
+        repinned = (rdirs[0] / "reload.pin").stat().st_mtime_ns != canary_pin
+        send(waves[2])
+        wait_for(lambda: settled([w["id"] for w in waves[2]]), "wave 3",
+                 [router])
+        (stage / names["C"]).rename(ck / names["C"])  # publish C
+        wait_for(lambda: has("rollback", "C"), "the rollback of C",
+                 [ctl2, router], timeout=300)
+        # r0 swings C -> B; the router re-exports what it scraped (every
+        # 2 s), so only an exposition written 3 s after r0's commit of B
+        # shows where the fleet ended
+        back = wait_for(lambda: json.loads(log_text(
+            rdirs[0] / "reload.pin.ack") or "{}").get("status") ==
+            "committed" and json.loads(log_text(
+                rdirs[0] / "reload.pin.ack"))["pin"] == names["B"] and
+            time.time(), "r0's ack of the rollback to B", [ctl2, router],
+            timeout=120)
+        wait_for(lambda: gauges() == ([want_b] * 2, [want_b] * 2) and
+                 (work / "router.prom").stat().st_mtime > back + 3.0,
+                 "every digest gauge back on B", [ctl2, router], timeout=120)
+        time.sleep(2.0)  # 4 more ticks: C is never retried
+        gauges_end = gauges()
+        ctl2.send_signal(signal.SIGTERM)
+        rc_ctl = ctl2.wait(timeout=60)
+        router.stdin.close()
+        rc_router = router.wait(timeout=120)
+        reader.join(60)
+        parts["deploy"] = time.perf_counter() - t_run
+        rcs = []
+        for p in procs[:2]:
+            p.send_signal(signal.SIGTERM)  # one drain signal each
+            rcs.append(p.wait(timeout=120))
+        watch.close()
+
+        # the checks
+        recs = ledger()
+        ops = [(r["op"], letter.get(r["ckpt"]), r.get("replica"))
+               for r in recs]
+        want_ops = [("observed", "A", None), ("converged", "A", None),
+                    ("observed", "B", None), ("canary", "B", "replica0"),
+                    ("probe", "A", None), ("probe", "B", None),
+                    ("promote", "B", "replica1"), ("converged", "B", None),
+                    ("observed", "C", None), ("canary", "C", "replica0"),
+                    ("probe", "C", None), ("rollback", "C", None)]
+        if ops != want_ops:
+            bad.append(f"the ledger's decisions {ops}, not {want_ops}")
+        rollback = next((r for r in recs if r["op"] == "rollback"), {})
+        if not str(rollback.get("reason", "")).startswith(
+                "ppl_regression:") or rollback.get("to") != names["B"]:
+            bad.append(f"C's rollback: {rollback}")
+        if repinned:
+            bad.append("the restarted controller rewrote the canary's pin")
+        if rc_ctl != 0 or rc_router != 0 or rcs != [0, 0]:
+            bad.append(f"exit codes: controller {rc_ctl}, router "
+                       f"{rc_router}, replicas {rcs}")
+        if gauges_b != ([want_b] * 2, [want_b] * 2) or \
+                gauges_end != gauges_b:
+            bad.append(f"digest gauges {gauges_b} then {gauges_end}, not "
+                       f"{want_b} everywhere")
+        for rdir in rdirs:
+            ack = json.loads(log_text(rdir / "reload.pin.ack") or "{}")
+            if ack.get("pin") != names["B"] or \
+                    ack.get("status") != "committed":
+                bad.append(f"{rdir.name}'s last ack {ack}, not B committed")
+        alerts = [a for a in jsonl(work / "alerts.jsonl")
+                  if a.get("ev") == "alert"]
+        if [(a.get("kind"), a.get("objective")) for a in alerts] != \
+                [("deploy_rollback", names["C"])]:
+            bad.append(f"alerts {alerts}, not one deploy_rollback of C")
+        evs = events_of(lines)
+        ids = sorted(w["id"] for wave in waves for w in wave)
+        done = sorted(e["id"] for e in evs if e["event"] == "done")
+        pairs = [(e["id"], e["index"]) for e in evs
+                 if e["event"] == "token"]
+        if done != ids or any(e["event"] == "rejected" for e in evs) or \
+                len(set(pairs)) != len(pairs):
+            bad.append(f"settled {done} of {ids}, or a token twice")
+        streams = {}
+        for e in evs:
+            if e["event"] == "token":
+                streams.setdefault(e["id"], {})[e["index"]] = e["token"]
+        unequal = [w["id"] for w in waves[0] + waves[2] if not stream_check(
+            streams.get(w["id"], {}), refs[w["id"]], first_generated(w))]
+        if unequal:
+            bad.append(f"streams differ from sample_fast: {unequal}")
+        probes = {}
+        for r in recs:
+            if r["op"] != "probe":
+                continue
+            key = letter[r["ckpt"]]
+            shards = probe_stats(deploy_dir / "probes" / r["ckpt"])
+            probes[key] = dict(ppl=r["ppl"], n=r["n"], tokens=r["tokens"],
+                               nll=math.log(r["ppl"]), nll_f32=nll32[key],
+                               d_nll=abs(math.log(r["ppl"]) - nll32[key]))
+            if shards != {k: r[k] for k in ("ppl", "n", "tokens")}:
+                bad.append(f"probe {key}: ledger {r}, shards {shards}")
+            if r["n"] != DEPLOY_PROBES or \
+                    not probes[key]["d_nll"] <= PROBE_NLL_ATOL:
+                bad.append(f"probe {key}: {probes[key]}")
+        spans = {}
+        for path in sorted(work.glob("runs/progen-deploy/*/events.jsonl")):
+            for r in iter_jsonl(path):
+                if r.get("ev") == "E" and r.get("span") == "deploy/probe":
+                    spans[letter[r["ckpt"]]] = r["dur_s"]
+        for key, p in probes.items():
+            steps = [r["step_s"] for r in jsonl(
+                deploy_dir / "probes" / names[key] / "score_journal.jsonl")
+                if r.get("op") == "batch"]
+            p.update(probe_s=spans.get(key), score_s=sum(steps),
+                     sequences_per_s=p["n"] / sum(steps) if steps else None)
+        m = re.findall(r"^deploy: \d+ ticks, .* launches (\{.*\})$",
+                       log_text(ctl_log), re.M)
+        launches = json.loads(m[-1]) if m else {}
+        batches = -(-DEPLOY_PROBES // 8)
+        want = {k: v * batches for k, v in per_forward(cfg).items()}
+        if launches != want:
+            bad.append(f"the restarted controller's probe launched "
+                       f"{launches}, not {want}")
+        ts = {(r["op"], letter[r["ckpt"]]): r["ts"] for r in recs}
+        reload_lines = {rdir.name: [float(x) for x in re.findall(
+            r"\(load \+ commit (\S+) s\)", log_text(rdir / "stderr.log"))]
+            for rdir in rdirs}
+    except BaseException:
+        for log in sorted(work.rglob("*.log")):
+            print(f"--- {log.relative_to(work)}:\n"
+                  f"{log_text(log)[-2000:]}", flush=True)
+        raise
+    finally:
+        if watch is not None:
+            watch.close()
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+                try:
+                    p.wait(60)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    out = dict(
+        card=card, config="configs/model/base.toml", depth=cfg.depth,
+        num_params=cfg.num_params(), slots=1, probes=DEPLOY_PROBES,
+        noise_b=DEPLOY_NOISE, logits_scale_c=DEPLOY_LOGITS_SCALE,
+        probe=probes, probe_nll_atol=PROBE_NLL_ATOL, boot_s=boot_s,
+        pin_to_ack_s=watch.pin_to_ack(), reload_load_commit_s=reload_lines,
+        observed_to_converged_s=ts[("converged", "B")] - ts[("observed",
+                                                             "B")],
+        observed_to_rollback_s=ts[("rollback", "C")] - ts[("observed", "C")],
+        restart_to_replayed_s=marks["replayed"],
+        restart_to_first_action_s=marks["first_action"],
+        rollback_reason=rollback.get("reason"), ops=[o[:2] for o in ops],
+        streams_equal=len(waves[0] + waves[2]) - len(unequal),
+        digest_b=want_b, launches=launches, parts_s=parts,
+        seconds=time.perf_counter() - t_phase, budget_s=100)
+    line("deploy", **out)
+    if bad:
+        raise AssertionError("deploy: " + "; ".join(bad))
+    return out
+
+
 def check_training(run: dict) -> None:
     """Phase 6c: every loss and grad norm finite, no step refused, and a
     lower loss on the repeated batch after the steps than before."""
@@ -5415,6 +5887,7 @@ def main() -> int:
     result["fleet"] = phase_fleet(dataclasses.replace(cfg, depth=FLEET_DEPTH),
                                   card)
     result["observability"] = phase_observability(cfg, card)
+    result["deploy"] = phase_deploy(cfg, card)
 
     # each kernel's launches, summed over the paths driven with counts:
     # scoring + generation, the 3 train steps, the A3 step, the seqpar
@@ -5425,7 +5898,8 @@ def main() -> int:
     # the grid ranks' steps (single-process comparisons left out), the
     # resumed cli.train, the fleet replica's embed forward and phase 14's
     # replicas' embed forwards (each counted in its own process, read from
-    # its exposition)
+    # its exposition), and phase 15's restarted deploy controller's probe
+    # (read from its closing summary line)
     paths = dict(inference=run["launches"], train=train["launches"],
                  halo_step=result["halo_step"]["launches"],
                  seqpar=result["seqpar"]["launches"],
@@ -5435,7 +5909,8 @@ def main() -> int:
                  grid=result["grid"]["launches"],
                  resilience=result["resilience"]["launches"],
                  fleet=result["fleet"]["launches"],
-                 observability=result["observability"]["launches"])
+                 observability=result["observability"]["launches"],
+                 deploy=result["deploy"]["launches"])
     counts = {k: sum(c[k] for c in paths.values()) for k in run["launches"]}
     line("launches", **paths, total=counts)
     if not all(counts.values()):

@@ -118,6 +118,35 @@ def verify_manifest(ckpt_dir: Path, manifest: Optional[dict]) -> bool:
     return True
 
 
+def checkpoint_digest(ckpt_dir) -> Optional[str]:
+    """Content identity of ONE checkpoint directory: sha256 over its
+    ``meta.json`` integrity manifest (the per-file digests, already paid
+    at save time: no re-hashing of tensor bytes). Two saves of identical
+    weights agree; any differing byte in ``params.pt`` or ``opt.pt``
+    disagrees. Falls back to hashing the whole ``meta.json`` when it has
+    no manifest; None when ``meta.json`` is absent or unreadable (the
+    save never completed). The JAX package's ``checkpoint_digest``."""
+    meta_path = Path(ckpt_dir) / META_FILE
+    try:
+        meta = json.loads(meta_path.read_text())
+    except (OSError, ValueError):
+        return None
+    payload = meta.get("integrity") or meta
+    return hashlib.sha256(
+        json.dumps(payload, sort_keys=True).encode("utf-8")
+    ).hexdigest()
+
+
+def digest_gauge(digest: Optional[str]) -> float:
+    """The first 48 bits of a hex digest as a float gauge (exact in the
+    float64 mantissa): how a replica publishes its live checkpoint
+    identity through its exposition, so the deploy controller and the
+    router see fleet skew. -1.0 = unknown."""
+    if not digest:
+        return -1.0
+    return float(int(digest[:12], 16))
+
+
 class Package(NamedTuple):
     """What one checkpoint holds. ``state``: on save, the ``TrainState``;
     on restore, the state it was loaded into, or, without one, the dict

@@ -74,7 +74,10 @@ exposition (prefix ``progen_serve_``; on the ``--metrics-every``
 cadence and at exit, and at least every ``--heartbeat`` seconds when
 set), with the process's own kernel launches as
 ``progen_serve_kernel_launches_<id>`` gauges (the embed forwards' A1,
-L1 and L2 on the card; the plain versions on the CPU count none);
+L1 and L2 on the card; the plain versions on the CPU count none) and
+the served checkpoint's identity as ``progen_serve_checkpoint_digest``
+(the first 48 bits of ``checkpoint_digest``, rewritten on every
+committed reload: the deploy controller's and the router's view);
 ``--prom_port`` serves it over HTTP on localhost. ``--flight_dir``
 arms the flight recorder (``telemetry/flight.py``: a ring of recent
 records, dumped atomically on a chaos kill, a stall escalation, an SLO
@@ -100,6 +103,7 @@ import time
 import numpy as np
 
 from progen_tpu_torch._device import resolve_device
+from progen_tpu_torch.checkpoint import checkpoint_digest, digest_gauge
 from progen_tpu_torch.cli.eval import load_model
 from progen_tpu_torch.data.tokenizer import decode_tokens, encode_tokens
 from progen_tpu_torch.fleet.transport import (
@@ -628,6 +632,16 @@ def run(argv=None) -> dict:
               f"(windows to {prof_out})", file=sys.stderr)
 
     beat = {"last": time.monotonic()}
+    ckpt_name = os.path.basename(pkg.path)
+
+    def note_checkpoint(name):
+        # live checkpoint identity (the first 48 digest bits as a float),
+        # in every exposition from the first: the deploy controller and
+        # the router read fleet skew from this
+        sched.metrics.set_gauge("checkpoint_digest", digest_gauge(
+            checkpoint_digest(os.path.join(args.checkpoint_path, name))))
+
+    note_checkpoint(ckpt_name)
 
     def publish(step=None):
         # the process's own kernel launches (the embed forwards'), so a
@@ -641,7 +655,6 @@ def run(argv=None) -> dict:
 
     # hot reload: SIGHUP (or the --reload_watch poll) stages a checkpoint
     # on a background thread; tick() commits it between decode steps
-    ckpt_name = os.path.basename(pkg.path)
     reloader = WeightReloader(engine, args.checkpoint_path,
                               metrics=sched.metrics, current=ckpt_name,
                               pin_path=args.reload_pin_path)
@@ -669,9 +682,10 @@ def run(argv=None) -> dict:
             prof_watcher.poll_watch()
         name = reloader.maybe_commit()
         if name is not None:
+            note_checkpoint(name)
             print(f"reload: now serving {name} (load + commit "
                   f"{reloader.last_duration_s:.3f} s)", file=sys.stderr)
-            publish()
+            publish()  # the digest gauge must not wait a metrics cadence
         elif reloader.last_error is not None:
             print(f"reload: rejected ({reloader.last_error}), still "
                   f"serving {reloader.current}", file=sys.stderr)

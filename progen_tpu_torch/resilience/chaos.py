@@ -59,7 +59,24 @@ The port's sites (``KNOWN_TARGETS``), named as the JAX package's:
   * ``transport/accept``    — each accepted TCP connection
                               (``fleet/transport.py``: dropped at once);
   * ``transport/frame``     — each decoded frame (dropped, and its
-                              connection condemned).
+                              connection condemned);
+  * ``autoscaler/decide``   — the top of each autoscaler decision tick
+                              (``fleet/autoscaler.py``);
+  * ``flight/dump``         — span entry of a flight-recorder dump
+                              (``telemetry/flight.py``);
+  * ``profile/window``      — span entry of an on-demand profiler
+                              window;
+  * ``deploy/canary``       — span entry of the deploy controller's
+                              canary pin (``deploy/controller.py``;
+                              ``kill`` = die before the pin or its
+                              ledger record exist);
+  * ``deploy/probe``        — span entry of a probe-set scoring (the
+                              scorer's shards make a resume bit-equal);
+  * ``deploy/promote``      — span entry of one replica's promote pin
+                              (``kill`` = die before that pin is
+                              written: a restart replays the ledger and
+                              finishes the rollout);
+  * ``deploy/rollback``     — span entry of a rollback's re-pins.
 
 The JAX package's ``data/glob`` guards a ``gs://`` glob, which the port
 refuses (``data/dataset.py``), and its ``train/compile`` a compile the
@@ -89,6 +106,7 @@ from progen_tpu_torch.telemetry.registry import get_registry
 KNOWN_TARGETS = frozenset({
     # spans
     "ckpt/finalize", "ckpt/restore", "ckpt/save",
+    "deploy/canary", "deploy/probe", "deploy/promote", "deploy/rollback",
     "flight/dump", "profile/window",
     "router/handoff",
     "serve/embed", "serve/prefill", "serve/prefill_chunk", "serve/reload",

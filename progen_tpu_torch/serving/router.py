@@ -508,8 +508,13 @@ class Router:
             )
             # re-export the load signals scraped for placement, so the
             # fleet collector sees per-replica pressure through the
-            # router's exposition even when replica files are remote
-            for key in ("queue_depth", "slot_occupancy"):
+            # router's exposition even when replica files are remote,
+            # and each replica's live checkpoint identity (the deploy
+            # controller's convergence). The JAX router also re-exports
+            # decode_compile_count: the port compiles nothing per shape,
+            # so its replicas publish no such gauge to re-export
+            for key in ("queue_depth", "slot_occupancy",
+                        "checkpoint_digest"):
                 if key in link.health:
                     self.metrics.set_gauge(
                         f"replica{link.index}_{key}", link.health[key]

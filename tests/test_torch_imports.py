@@ -78,7 +78,13 @@ def test_package_has_the_slice_modules():
                 "telemetry.alerts", "telemetry.alert_router",
                 "telemetry.collector", "telemetry.console",
                 "telemetry.flight", "fleet.autoscaler", "cli.telemetry",
-                "cli.collector", "cli.top", "training"):
+                "cli.collector", "cli.top", "training", "deploy",
+                "deploy.ledger", "deploy.controller", "cli.deploy",
+                "analysis", "analysis.core", "analysis.event_grammar",
+                "analysis.project", "analysis.registry", "analysis.runner",
+                "analysis.rules_telemetry", "analysis.rules_durability",
+                "analysis.rules_locks", "analysis.rules_chaos",
+                "analysis.rules_grammar_consumers", "cli.lint"):
         assert f"progen_tpu_torch.{mod}" in names
 
 

@@ -999,3 +999,48 @@ class TestScaling:
         finally:
             r0.close()
             r1.close()
+
+
+class TestDigestReexport:
+    def test_replica_checkpoint_digest_reexported(self, tmp_path):
+        """The router re-exports each replica's progen_serve_
+        checkpoint_digest (scraped from its exposition) as
+        replica{i}_checkpoint_digest, as the JAX router does from the same
+        files; the port's replicas publish no decode_compile_count, so
+        none is re-exported."""
+        from progen_tpu_torch.checkpoint import digest_gauge
+        from progen_tpu_torch.telemetry.prometheus import write_prometheus
+
+        gauges = [digest_gauge("a1b2c3d4e5f6" + "0" * 52),
+                  digest_gauge("0fedcba98765" + "1" * 52)]
+        proms = []
+        for i, g in enumerate(gauges):
+            m = ServingMetrics()
+            m.set_gauge("queue_depth", i)
+            m.set_gauge("checkpoint_digest", g)
+            proms.append(str(tmp_path / f"r{i}.prom"))
+            write_prometheus(proms[-1], prometheus_text(m))
+        snaps = []
+        for pkg, spec_cls, router_cls, policy in (
+                ("torch", ReplicaSpec, Router, FAST_POLICY),
+                ("jax", jax_router.ReplicaSpec, jax_router.Router,
+                 JaxRetryPolicy(max_attempts=3, base_delay_s=0.01,
+                                max_delay_s=0.05, multiplier=2.0,
+                                jitter=0.0, seed=0))):
+            (tmp_path / pkg).mkdir()
+            fakes = [FakeReplica(tmp_path / pkg, f"r{i}") for i in range(2)]
+            router = router_cls(
+                [spec_cls(socket_path=f.path, prom_file=p)
+                 for f, p in zip(fakes, proms)],
+                policy=policy, health_every=0.0)
+            try:
+                pump(router, fakes, rounds=3)
+                snaps.append(router.metrics.snapshot())
+            finally:
+                for f in fakes:
+                    f.close()
+        got, want = snaps
+        for i, g in enumerate(gauges):
+            assert got[f"replica{i}_checkpoint_digest"] == g
+            assert want[f"replica{i}_checkpoint_digest"] == g
+        assert not any(k.endswith("decode_compile_count") for k in got)

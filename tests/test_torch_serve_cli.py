@@ -317,3 +317,79 @@ def test_socket_release_control_line(ckpt, tmp_path):
     assert sorted((m["req"].split(":", 1)[1], m["status"],
                    m.get("resumed_by")) for m in marks) == [
         ("r1", "completed", None), ("r2", "handed_off", "router")]
+
+
+def test_prom_file_carries_the_checkpoint_digest(ckpt, tmp_path):
+    """--prom_file carries the served checkpoint's identity as
+    progen_serve_checkpoint_digest (digest_gauge of checkpoint_digest),
+    and a committed pinned reload moves it to the new checkpoint's at
+    once, without waiting for a metrics cadence."""
+    import shutil
+    import time
+
+    from progen_tpu_torch.checkpoint import checkpoint_digest, digest_gauge
+    from progen_tpu_torch.training.optimizer import (
+        MaskedAdamW,
+        OptimizerConfig,
+    )
+    from progen_tpu_torch.training.state import TrainState
+
+    src, model = ckpt
+    ck = tmp_path / "ck"
+    shutil.copytree(src, ck)
+    (name_a,) = [p.name for p in ck.iterdir()]
+    prom, pin = tmp_path / "serve.prom", tmp_path / "reload.pin"
+
+    def gauge():
+        m = re.search(r"^progen_serve_checkpoint_digest (\S+)$",
+                      prom.read_text() if prom.exists() else "", re.M)
+        return None if m is None else float(m.group(1))
+
+    def wait(pred, what):
+        deadline = time.monotonic() + 120
+        while not pred():
+            assert proc.poll() is None, err.read_text()[-2000:]
+            assert time.monotonic() < deadline, what
+            time.sleep(0.05)
+
+    err = tmp_path / "stderr.log"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "progen_tpu_torch.cli.serve", "--device",
+         "cpu", "--checkpoint_path", str(ck), "--max-len", "32",
+         "--prom_file", str(prom), "--heartbeat", "0.05",
+         "--reload_watch", "0.2", "--reload_pin", str(pin)],
+        stdin=subprocess.PIPE, stdout=subprocess.DEVNULL,
+        stderr=open(err, "w"), cwd=tmp_path, text=True,
+        env=dict(os.environ, PYTHONPATH=str(REPO)))
+    try:
+        want_a = digest_gauge(checkpoint_digest(ck / name_a))
+        wait(lambda: gauge() is not None, "the first exposition")
+        assert gauge() == want_a and want_a > 0
+        model_b = load_model(str(ck), torch.device("cpu"))[0]
+        with torch.no_grad():
+            for p in model_b.parameters():
+                p.mul_(1.25)
+        name_b = Path(get_checkpoint_fns(str(ck))[2](Package(
+            next_seq_index=0, state=TrainState(1, model_b, MaskedAdamW(
+                model_b, OptimizerConfig())),
+            model_config=model_b.config.to_dict(), run_id="b"))).name
+        want_b = digest_gauge(checkpoint_digest(ck / name_b))
+        assert want_b not in (want_a, -1.0)
+        tmp = pin.with_name(pin.name + ".tmp")
+        with tmp.open("w") as f:  # the controller's atomic pin write
+            f.write(name_b + "\n")
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, pin)
+        ack = pin.with_name(pin.name + ".ack")
+        wait(lambda: ack.exists() and json.loads(ack.read_text()).get(
+            "status") == "committed", "the pin's ack")
+        assert json.loads(ack.read_text())["pin"] == name_b
+        wait(lambda: gauge() == want_b, "the gauge on the new checkpoint")
+        proc.stdin.close()  # EOF drains
+        assert proc.wait(timeout=60) == 0, err.read_text()[-2000:]
+        assert gauge() == want_b
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
