@@ -4,18 +4,32 @@ The port's copy of the JAX package's ``telemetry/spans.py``. A span is
 one timed region of host code (``span("serve/prefill_chunk")``): on entry a
 ``B`` (begin) record goes to the sink, on exit an ``E`` (end) record
 with the duration, so a ``B`` without its ``E`` is the phase a process
-died in. The body also runs under ``torch.profiler.record_function``, so
-a profiler trace shows the span around the kernels it launched (the
-counterpart of ``jax.named_scope``).
+died in. Both records carry ``parent``, the id of the innermost span
+open on the same thread when the span was entered (None at the top),
+so the spans of one step group under its root.
+
+Stamps come from ``time.time_ns()``, the clock of ``torch.profiler``'s
+event timestamps: a record's ``ts`` (seconds) is the entry or exit
+stamp, and ``dur_s`` their difference. While a profiler is running
+the body also runs under ``torch.profiler.record_function``, so the
+trace shows the span around the kernels it launched (the counterpart
+of ``jax.named_scope``); without one the annotation is skipped, and a
+span costs only its bookkeeping. A span opened before a profiler
+starts is not annotated.
+
+``span(name, wait=True)`` marks a region where the host waits for the
+card: a ``bool()``, ``.item()`` or ``.cpu()`` of a device tensor, or a
+copy from pageable memory.
 
 The module-level ``span()``/``configure()`` pair drives one
 process-global ``Telemetry``, so callees open spans without a handle
 passed down. With no sink configured, records are dropped, but the
-in-memory state of open and recently closed spans is kept: it is what
-the stall watchdog (``telemetry/watchdog.py``) reports. Every span's
-entry calls the hooks in ``SPAN_ENTRY_HOOKS`` with its name: the fault
-injector (``resilience/chaos.py``) registers there. ``step_print`` is
-the train loop's step-stamped console line.
+in-memory state is kept: the open spans, and a ring of the last
+``RING_SPANS`` closed ones (``Closed`` tuples) that the stall watchdog
+(``telemetry/watchdog.py``) and the benchmark's per-layer readers read.
+Every span's entry calls the hooks in ``SPAN_ENTRY_HOOKS`` with its
+name: the fault injector (``resilience/chaos.py``) registers there.
+``step_print`` is the train loop's step-stamped console line.
 """
 
 from __future__ import annotations
@@ -27,7 +41,7 @@ import threading
 import time
 from collections import deque
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -38,6 +52,23 @@ def host_index() -> int:
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank()
     return 0
+
+
+# closed spans kept in memory: a 51 s benchmark window closes about
+# 2,000 spans, so the ring holds many windows
+RING_SPANS = 32768
+
+
+class Closed(NamedTuple):
+    """One closed span in the ring: stamps in ``time.time_ns()``."""
+
+    name: str
+    id: int
+    parent: Optional[int]
+    tid: int
+    t0_ns: int
+    t1_ns: int
+    wait: bool
 
 
 # span-entry hooks: called with the span name after the B record is
@@ -79,17 +110,19 @@ class EventLog:
 
 
 class Telemetry:
-    """Span emitter and the in-memory state of open and recent spans.
+    """Span emitter and the in-memory state of open and closed spans.
     ``sink`` is any ``callable(dict)`` (an ``EventLog.emit``, a
     ``JsonlTracker.log_event``) or None (records dropped, state kept)."""
 
     def __init__(self, sink: Optional[Callable[[dict], None]] = None,
-                 max_recent: int = 64):
+                 ring_spans: int = RING_SPANS):
         self._sink = sink
         self._seq = itertools.count()
         self._lock = threading.Lock()
         self._open: dict = {}
-        self._recent: deque = deque(maxlen=max_recent)
+        self._ring: deque = deque(maxlen=ring_spans)
+        self._local = threading.local()  # .stack: ids of open spans
+        self.dropped = 0  # closed spans pushed out of the ring
 
     def set_sink(self, sink: Optional[Callable[[dict], None]]) -> None:
         self._sink = sink
@@ -113,28 +146,48 @@ class Telemetry:
             self._sink = None
 
     @contextlib.contextmanager
-    def span(self, name: str, **attrs):
+    def span(self, name: str, wait: bool = False, **attrs):
         """``B`` on entry, ``E`` with ``dur_s`` on exit, also when the
-        body raises."""
+        body raises. ``wait``: the body is the host waiting for the
+        card."""
+        t0 = time.time_ns()
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
         thread = threading.current_thread()
-        head = {"span": name, "id": next(self._seq), "tid": thread.ident,
-                "thread": thread.name}
-        begin = {"ev": "B", **head, "ts": time.time(), **attrs}
+        sid = next(self._seq)
+        parent = stack[-1] if stack else None
+        head = {"span": name, "id": sid, "parent": parent,
+                "tid": thread.ident, "thread": thread.name}
+        begin = {"ev": "B", **head, "ts": t0 / 1e9, **attrs}
+        stack.append(sid)
         with self._lock:
-            self._open[head["id"]] = begin
+            self._open[sid] = begin
         self.emit(begin)
-        t0 = time.perf_counter()
         try:
             for hook in SPAN_ENTRY_HOOKS:
                 hook(name)
-            with torch.profiler.record_function(name):
+            if torch.autograd._profiler_enabled():
+                with torch.profiler.record_function(name):
+                    yield
+            else:
                 yield
         finally:
-            end = {"ev": "E", **head, "ts": time.time(),
-                   "dur_s": round(time.perf_counter() - t0, 6), **attrs}
+            t1 = time.time_ns()
+            # off the entering thread's stack, also when another thread
+            # closes the span
+            if stack and stack[-1] == sid:
+                stack.pop()
+            elif sid in stack:
+                stack.remove(sid)
+            end = {"ev": "E", **head, "ts": t1 / 1e9,
+                   "dur_s": round((t1 - t0) / 1e9, 6), **attrs}
+            closed = Closed(name, sid, parent, thread.ident, t0, t1, wait)
             with self._lock:
-                self._open.pop(head["id"], None)
-                self._recent.append(end)
+                self._open.pop(sid, None)
+                if len(self._ring) == self._ring.maxlen:
+                    self.dropped += 1
+                self._ring.append(closed)
             self.emit(end)
 
     def open_spans(self) -> list:
@@ -143,9 +196,19 @@ class Telemetry:
             return sorted(self._open.values(), key=lambda r: r["id"])
 
     def recent_spans(self, n: int = 16) -> list:
-        """The last ``n`` closed spans, oldest first."""
+        """The last ``n`` closed spans, oldest first, as records with
+        ``span``, ``ts`` (exit) and ``dur_s``."""
         with self._lock:
-            return list(self._recent)[-n:]
+            last = list(itertools.islice(reversed(self._ring), n))
+        return [{"span": c.name, "ts": c.t1_ns / 1e9,
+                 "dur_s": round((c.t1_ns - c.t0_ns) / 1e9, 6)}
+                for c in reversed(last)]
+
+    def closed_spans(self) -> list:
+        """The ring of closed spans, oldest (first closed) first;
+        ``dropped`` counts those it no longer holds."""
+        with self._lock:
+            return list(self._ring)
 
 
 _GLOBAL = Telemetry()
@@ -166,9 +229,9 @@ def configure(sink: Optional[Callable[[dict], None]] = None,
     return _GLOBAL
 
 
-def span(name: str, **attrs):
+def span(name: str, wait: bool = False, **attrs):
     """A span on the process-global Telemetry."""
-    return _GLOBAL.span(name, **attrs)
+    return _GLOBAL.span(name, wait, **attrs)
 
 
 def step_print(step, msg: str) -> None:

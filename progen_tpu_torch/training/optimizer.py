@@ -41,6 +41,7 @@ from torch import nn
 
 from progen_tpu_torch.parallel.partition import Zero1, zero1_dim
 from progen_tpu_torch.parallel.tensor import layout
+from progen_tpu_torch.telemetry.spans import span
 
 SCHEDULES = ("constant", "cosine")
 B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adamw's defaults, as the JAX package
@@ -128,7 +129,9 @@ class MaskedAdamW:
     like the model's state_dict. ``update`` changes the moments, the count
     and the parameters in place. With ``zero1``, ``mu`` and ``nu`` hold
     this rank's slices (``cut``: each tensor's dim, or None when whole);
-    ``state_dict`` and ``load_state_dict`` still speak of whole ones."""
+    ``state_dict`` and ``load_state_dict`` still speak of whole ones.
+    ``update`` opens the spans ``step/clip``, ``step/adamw`` (the
+    per-tensor loop) and, with ZeRO-1, ``step/zero1_gather``."""
 
     def __init__(self, model: nn.Module, config: OptimizerConfig,
                  zero1: Zero1 | None = None):
@@ -163,28 +166,33 @@ class MaskedAdamW:
         """One update from ``grads`` (same keys as the parameters; clipped
         here, in place). ``norm``: their global norm, when known."""
         c = self.config
-        clip_by_global_norm(grads, c.max_grad_norm, norm)
+        with span("step/clip"):
+            clip_by_global_norm(grads, c.max_grad_norm, norm)
         lr = learning_rate(c, self.count)
         count = self.count + 1
         # optax takes 1 - decay**count in float32
         bc1 = float(np.float32(1) - np.float32(B1) ** np.float32(count))
         bc2 = float(np.float32(1) - np.float32(B2) ** np.float32(count))
-        for name, whole in self.params.items():
-            # with ZeRO-1, views of this rank's slices: the update is
-            # elementwise, so each element is the one the whole would get
-            p, g = self._mine(name, whole), self._mine(name, grads[name])
-            mu, nu = self.mu[name], self.nu[name]
-            # (1 - b) * g**k + b * moment, in optax's order
-            mu.mul_(B1).add_(g * (1 - B1))
-            nu.mul_(B2).add_(g.square() * (1 - B2))
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + EPS)
-            if self.decay[name]:
-                u = u + c.weight_decay * p
-            p.add_(-lr * u)
+        with span("step/adamw"):
+            for name, whole in self.params.items():
+                # with ZeRO-1, views of this rank's slices: the update
+                # is elementwise, so each element is the one the whole
+                # would get
+                p = self._mine(name, whole)
+                g = self._mine(name, grads[name])
+                mu, nu = self.mu[name], self.nu[name]
+                # (1 - b) * g**k + b * moment, in optax's order
+                mu.mul_(B1).add_(g * (1 - B1))
+                nu.mul_(B2).add_(g.square() * (1 - B2))
+                u = (mu / bc1) / (torch.sqrt(nu / bc2) + EPS)
+                if self.decay[name]:
+                    u = u + c.weight_decay * p
+                p.add_(-lr * u)
         if self.zero1 is not None:
             names = list(self.params)
-            self.zero1.gather_([self.params[n] for n in names],
-                               [self.cut[n] for n in names])
+            with span("step/zero1_gather"):
+                self.zero1.gather_([self.params[n] for n in names],
+                                   [self.cut[n] for n in names])
         self.count = count
 
     def state_dict(self) -> dict:

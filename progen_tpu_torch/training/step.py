@@ -35,6 +35,14 @@ replicated tensor once; it and the finite gate are computed from the
 same reduced values on every rank, so every rank takes the same decision
 and the same update. ``zero1`` cuts the moments over the data group
 (``parallel/partition.py``).
+
+Each call opens the span tree ``step/run`` > ``step/h2d`` (a wait),
+``step/forward`` and ``step/backward`` per micro-batch (attr
+``micro``), ``step/grad_reduce`` (with a grid), ``step/grad_norm``,
+``step/gate`` (the finite gate's read, a wait) and ``step/update``
+(when the gate passes; ``step/clip``, ``step/adamw`` and
+``step/zero1_gather`` inside, from the optimizer). They add no launch
+or synchronise.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from progen_tpu_torch.parallel.collectives import all_reduce_, broadcast_
 from progen_tpu_torch.parallel.groups import Grid, shard_batch
 from progen_tpu_torch.parallel.partition import Zero1
 from progen_tpu_torch.parallel.tensor import layout
+from progen_tpu_torch.telemetry.spans import span
 from progen_tpu_torch.training.loss import cross_entropy, shard_cross_entropy
 from progen_tpu_torch.training.optimizer import (
     MaskedAdamW,
@@ -116,8 +125,13 @@ def make_train_step(grid: Grid | None = None
     the same on every rank, which every rank steps together."""
 
     def train_step(state: TrainState, batch: torch.Tensor):
+        with span("step/run"):
+            return _train_step(state, batch)
+
+    def _train_step(state: TrainState, batch: torch.Tensor):
         model, opt = state.model, state.optimizer
-        batch = torch.as_tensor(batch).to(model.device)
+        with span("step/h2d", wait=True):
+            batch = torch.as_tensor(batch).to(model.device)
         if batch.ndim != 3:
             raise ValueError("batch must be (grad_accum, micro_batch, "
                              f"seq_len + 1), got {tuple(batch.shape)}")
@@ -127,21 +141,28 @@ def make_train_step(grid: Grid | None = None
         for p in params.values():
             p.grad = None
         losses = []
-        for micro in batch:
-            loss = batch_loss(model, micro, grid)
-            loss.backward()  # sums into .grad across micro-batches
+        for k, micro in enumerate(batch):
+            with span("step/forward", micro=k):
+                loss = batch_loss(model, micro, grid)
+            with span("step/backward", micro=k):
+                loss.backward()  # sums into .grad across micro-batches
             losses.append(loss.detach())
         losses = torch.stack(losses)
         if grid is not None:
             # summed over seq, averaged over data
-            reduce_grads(model, {n: p.grad for n, p in params.items()},
-                         losses, grid)
+            with span("step/grad_reduce"):
+                reduce_grads(model, {n: p.grad for n, p in params.items()},
+                             losses, grid)
         grads = {name: p.grad.div_(batch.shape[0])
                  for name, p in params.items()}
-        grad_norm = grid_norm(model, grads, grid)
-        ok = bool(torch.isfinite(losses).all() & torch.isfinite(grad_norm))
+        with span("step/grad_norm"):
+            grad_norm = grid_norm(model, grads, grid)
+        with span("step/gate", wait=True):
+            ok = bool(torch.isfinite(losses).all()
+                      & torch.isfinite(grad_norm))
         if ok:
-            opt.update(grads, grad_norm)
+            with span("step/update"):
+                opt.update(grads, grad_norm)
         for p in params.values():
             p.grad = None
         state.step += 1

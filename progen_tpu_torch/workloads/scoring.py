@@ -40,7 +40,7 @@ from progen_tpu_torch.telemetry.prometheus import (
     prometheus_text,
     write_prometheus,
 )
-from progen_tpu_torch.telemetry.spans import get_telemetry
+from progen_tpu_torch.telemetry.spans import get_telemetry, span
 from progen_tpu_torch.telemetry.trace import iter_jsonl
 from progen_tpu_torch.training.loss import sequence_scores
 
@@ -87,8 +87,10 @@ class _ScoreStep:
     def __call__(self, batch):
         first = batch.shape not in self.seen_shapes
         self.seen_shapes.add(batch.shape)
-        out = score_step(self.model, batch, device=self.model.device)
-        return _host_scores(*out), first
+        with span("score/forward"):
+            out = score_step(self.model, batch, device=self.model.device)
+        with span("score/fetch", wait=True):
+            return _host_scores(*out), first
 
 
 class ScoreJournal:
@@ -249,122 +251,129 @@ def run_batch_score(
     ``progen_score_``) is rewritten every ``metrics_every`` batches (0 =
     at the end only) and at the end.
     """
-    cfg = model.config
-    seq_len = cfg.seq_len
-    fixed_len = cfg.global_mlp_depth > 0  # see _bucket
-    # local attention needs window-divisible widths; window sizes are
-    # powers of two, so flooring the bucket keeps every pow2 bucket legal
-    min_bucket = max(min_bucket, cfg.window_size)
-    os.makedirs(out_dir, exist_ok=True)
-    journal = ScoreJournal(out_dir)
-    seen, shard_idx = scored_ids(out_dir) if resume else (set(), 0)
-    writer = _ShardWriter(out_dir, shard_idx, shard_size)
-    step_fn = _ScoreStep(model)
+    with span("score/run"):
+        cfg = model.config
+        seq_len = cfg.seq_len
+        fixed_len = cfg.global_mlp_depth > 0  # see _bucket
+        # local attention needs window-divisible widths; window sizes are
+        # powers of two, so flooring the bucket keeps every pow2 bucket legal
+        min_bucket = max(min_bucket, cfg.window_size)
+        os.makedirs(out_dir, exist_ok=True)
+        journal = ScoreJournal(out_dir)
+        seen, shard_idx = scored_ids(out_dir) if resume else (set(), 0)
+        writer = _ShardWriter(out_dir, shard_idx, shard_size)
+        step_fn = _ScoreStep(model)
 
-    times = {"data": 0.0, "step": 0.0, "compile": 0.0, "write": 0.0}
-    stats = {"n_scored": 0, "n_skipped": 0, "n_resumed": len(seen),
-             "tokens": 0, "batches": 0}
-    journal.emit({"ev": "score", "op": "resume" if seen else "start",
-                  "out_dir": out_dir, "already_scored": len(seen),
-                  "shard_index": shard_idx})
-    t0 = time.monotonic()
-    stopped_early = False
-    pending: dict = {}  # bucket -> list of (rid, raw bytes)
+        times = {"data": 0.0, "step": 0.0, "compile": 0.0, "write": 0.0}
+        stats = {"n_scored": 0, "n_skipped": 0, "n_resumed": len(seen),
+                 "tokens": 0, "batches": 0}
+        journal.emit({"ev": "score", "op": "resume" if seen else "start",
+                      "out_dir": out_dir, "already_scored": len(seen),
+                      "shard_index": shard_idx})
+        t0 = time.monotonic()
+        stopped_early = False
+        pending: dict = {}  # bucket -> list of (rid, raw bytes)
 
-    def flush_bucket(bucket: int) -> None:
-        batch = pending.pop(bucket, [])
-        if not batch:
-            return
-        n = len(batch)
-        rows = [raw for _, raw in batch]
-        rows += [b""] * (batch_size - n)  # pad rows: all-zero, dropped
-        t = time.monotonic()
-        data = collate(rows, bucket)
-        times["data"] += time.monotonic() - t
+        def flush_bucket(bucket: int) -> None:
+            batch = pending.pop(bucket, [])
+            if not batch:
+                return
+            n = len(batch)
+            with span("score/flush", bucket=bucket, n=n):
+                rows = [raw for _, raw in batch]
+                rows += [b""] * (batch_size - n)  # pad rows: all-zero, dropped
+                t = time.monotonic()
+                with span("score/collate"):
+                    data = collate(rows, bucket)
+                times["data"] += time.monotonic() - t
 
-        t = time.monotonic()
-        (nll, lp, mask), first = step_fn(data)
-        dt = time.monotonic() - t
-        times["compile" if first else "step"] += dt
+                t = time.monotonic()
+                (nll, lp, mask), first = step_fn(data)
+                dt = time.monotonic() - t
+                times["compile" if first else "step"] += dt
 
-        t = time.monotonic()
-        for i, (rid, _) in enumerate(batch):
-            rec = {"id": rid,
-                   "seq_index": stats["n_resumed"] + stats["n_scored"],
-                   "n_tokens": int(mask[i].sum()),
-                   "nll": float(nll[i]),
-                   "ppl": float(np.exp(nll[i]))}
-            if logprobs:
-                rec["logprobs"] = [float(x) for x in lp[i][mask[i]]]
-            writer.write(rec)
-            seen.add(rid)
-            stats["n_scored"] += 1
-            stats["tokens"] += rec["n_tokens"]
-        writer.flush()
-        times["write"] += time.monotonic() - t
-        stats["batches"] += 1
-        journal.emit({"ev": "score", "op": "batch", "bucket": bucket,
-                      "n": n, "scored": stats["n_scored"],
-                      "step_s": round(dt, 6)})
-        if metrics is not None:
-            metrics.inc("sequences_scored", n)
-            metrics.inc("tokens_scored", int(mask[:n].sum()))
-            metrics.inc("batches")
-            elapsed = max(time.monotonic() - t0, 1e-9)
-            metrics.set_gauge("seq_per_s", stats["n_scored"] / elapsed)
-            metrics.set_gauge("tokens_per_s", stats["tokens"] / elapsed)
-            metrics.set_gauge("goodput_pct",
-                              100.0 * times["step"] / elapsed)
-            if prom_file and metrics_every > 0 \
-                    and stats["batches"] % metrics_every == 0:
-                write_prometheus(prom_file, prometheus_text(
-                    metrics, prefix="progen_score_"))
-        # the kill site: SIGKILL lands AFTER the batch is durable (flushed
-        # and fsynced above), so a resume re-scores nothing
-        maybe_inject("score/batch")
-
-    for rid, raw in records:
-        if rid in seen:
-            continue
-        n_tok = len(raw) + 1  # + the EOS position the loss mask keeps
-        if n_tok > seq_len:
-            journal.emit({"ev": "score", "op": "skip", "id": str(rid),
-                          "n_tokens": n_tok, "seq_len": seq_len})
-            stats["n_skipped"] += 1
+                with span("score/write"):
+                    t = time.monotonic()
+                    for i, (rid, _) in enumerate(batch):
+                        rec = {"id": rid,
+                               "seq_index": (stats["n_resumed"]
+                                             + stats["n_scored"]),
+                               "n_tokens": int(mask[i].sum()),
+                               "nll": float(nll[i]),
+                               "ppl": float(np.exp(nll[i]))}
+                        if logprobs:
+                            rec["logprobs"] = [float(x)
+                                               for x in lp[i][mask[i]]]
+                        writer.write(rec)
+                        seen.add(rid)
+                        stats["n_scored"] += 1
+                        stats["tokens"] += rec["n_tokens"]
+                    writer.flush()
+                    times["write"] += time.monotonic() - t
+                    stats["batches"] += 1
+                    journal.emit({"ev": "score", "op": "batch",
+                                  "bucket": bucket, "n": n,
+                                  "scored": stats["n_scored"],
+                                  "step_s": round(dt, 6)})
             if metrics is not None:
-                metrics.inc("skipped_too_long")
-            continue
-        b = _bucket(n_tok, seq_len, min_bucket, fixed_len)
-        pending.setdefault(b, []).append((rid, raw))
-        if len(pending[b]) >= batch_size:
-            flush_bucket(b)
-            if max_batches is not None and stats["batches"] >= max_batches:
-                stopped_early = True
-                break
+                metrics.inc("sequences_scored", n)
+                metrics.inc("tokens_scored", int(mask[:n].sum()))
+                metrics.inc("batches")
+                elapsed = max(time.monotonic() - t0, 1e-9)
+                metrics.set_gauge("seq_per_s", stats["n_scored"] / elapsed)
+                metrics.set_gauge("tokens_per_s", stats["tokens"] / elapsed)
+                metrics.set_gauge("goodput_pct",
+                                  100.0 * times["step"] / elapsed)
+                if prom_file and metrics_every > 0 \
+                        and stats["batches"] % metrics_every == 0:
+                    write_prometheus(prom_file, prometheus_text(
+                        metrics, prefix="progen_score_"))
+            # the kill site: SIGKILL lands AFTER the batch is durable (flushed
+            # and fsynced above), so a resume re-scores nothing
+            maybe_inject("score/batch")
 
-    if not stopped_early:
-        for b in sorted(pending):
-            flush_bucket(b)
-            if max_batches is not None and stats["batches"] >= max_batches:
-                stopped_early = True
-                break
+        for rid, raw in records:
+            if rid in seen:
+                continue
+            n_tok = len(raw) + 1  # + the EOS position the loss mask keeps
+            if n_tok > seq_len:
+                journal.emit({"ev": "score", "op": "skip", "id": str(rid),
+                              "n_tokens": n_tok, "seq_len": seq_len})
+                stats["n_skipped"] += 1
+                if metrics is not None:
+                    metrics.inc("skipped_too_long")
+                continue
+            b = _bucket(n_tok, seq_len, min_bucket, fixed_len)
+            pending.setdefault(b, []).append((rid, raw))
+            if len(pending[b]) >= batch_size:
+                flush_bucket(b)
+                if max_batches is not None and stats["batches"] >= max_batches:
+                    stopped_early = True
+                    break
 
-    writer.close()
-    elapsed = max(time.monotonic() - t0, 1e-9)
-    if metrics is not None and prom_file:
-        write_prometheus(prom_file, prometheus_text(
-            metrics, prefix="progen_score_"))
-    summary = {
-        "n_scored": stats["n_scored"],
-        "n_skipped": stats["n_skipped"],
-        "n_resumed": stats["n_resumed"],
-        "tokens": stats["tokens"],
-        "batches": stats["batches"],
-        "elapsed_s": round(elapsed, 3),
-        "goodput_pct": round(100.0 * times["step"] / elapsed, 2),
-        "times": {k: round(v, 3) for k, v in times.items()},
-        "stopped_early": stopped_early,
-    }
-    journal.emit({"ev": "score", "op": "done", **summary})
-    journal.close()
-    return summary
+        if not stopped_early:
+            for b in sorted(pending):
+                flush_bucket(b)
+                if max_batches is not None and stats["batches"] >= max_batches:
+                    stopped_early = True
+                    break
+
+        writer.close()
+        elapsed = max(time.monotonic() - t0, 1e-9)
+        if metrics is not None and prom_file:
+            write_prometheus(prom_file, prometheus_text(
+                metrics, prefix="progen_score_"))
+        summary = {
+            "n_scored": stats["n_scored"],
+            "n_skipped": stats["n_skipped"],
+            "n_resumed": stats["n_resumed"],
+            "tokens": stats["tokens"],
+            "batches": stats["batches"],
+            "elapsed_s": round(elapsed, 3),
+            "goodput_pct": round(100.0 * times["step"] / elapsed, 2),
+            "times": {k: round(v, 3) for k, v in times.items()},
+            "stopped_early": stopped_early,
+        }
+        journal.emit({"ev": "score", "op": "done", **summary})
+        journal.close()
+        return summary

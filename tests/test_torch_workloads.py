@@ -309,8 +309,10 @@ class TestScoringWithinPort:
                             batch_size=2)
         finally:
             spans.configure()
-        assert [r["op"] for r in seen] == ["start", "batch", "batch",
-                                           "done"]
+        # beside the scorer's spans (B and E records)
+        assert [r["op"] for r in seen if r["ev"] == "score"] == [
+            "start", "batch", "batch", "done"]
+        assert {r["ev"] for r in seen} == {"score", "B", "E"}
 
 
 class TestResume:

@@ -148,8 +148,13 @@ def test_batch_score_in_process(ckpt, tmp_path, monkeypatch, capsys):
     assert len(list((tmp_path / "out").glob("scores-*.jsonl"))) == 3
     (events,) = (tmp_path / "runs" / "progen-batch-score").glob(
         "*/events.jsonl")
-    assert [json.loads(ln)["op"] for ln in events.read_text()
-            .splitlines()] == ["start", "batch", "batch", "done"]
+    lines = [json.loads(ln) for ln in events.read_text().splitlines()]
+    assert [r["op"] for r in lines if r["ev"] == "score"] == [
+        "start", "batch", "batch", "done"]
+    # beside the scorer's spans
+    assert {r["span"] for r in lines if r["ev"] == "B"} == {
+        "score/run", "score/flush", "score/collate", "score/forward",
+        "score/fetch", "score/write"}
 
 
 def test_batch_score_reads_a_tfrecord_split(ckpt, tmp_path, monkeypatch):
