@@ -200,11 +200,14 @@ def run_blocks(pairs, x, sin, cos, group, remat: bool):
     """The residual stack over (attention, feed-forward) block pairs. With
     ``remat``, each block is recomputed in the backward; the recompute
     runs the block's collectives again, on every rank in the same
-    order."""
+    order. The blocks draw no random numbers, so the recompute restores
+    no generator state, and a captured step reads none."""
     for attn, ff in pairs:
         if remat:
-            x = x + checkpoint(attn, x, sin, cos, group, use_reentrant=False)
-            x = x + checkpoint(ff, x, group, use_reentrant=False)
+            x = x + checkpoint(attn, x, sin, cos, group, use_reentrant=False,
+                               preserve_rng_state=False)
+            x = x + checkpoint(ff, x, group, use_reentrant=False,
+                               preserve_rng_state=False)
         else:
             x = x + attn(x, sin, cos, group)
             x = x + ff(x, group)

@@ -4,6 +4,8 @@ Each wrapper adds one to its own ``launches`` where it launches its CUDA
 kernel (never on the plain version's CPU path), so a process can say
 which kernels its work went through: ``cli.serve`` writes the counts
 into its exposition as ``progen_serve_kernel_launches_<id>`` gauges.
+A replayed CUDA graph runs its kernels without their wrappers, so its
+replays ``credit`` the launches counted while it was captured.
 """
 
 from __future__ import annotations
@@ -28,6 +30,12 @@ def launch_counts() -> dict:
 def reset_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+
+
+def credit(counts: dict) -> None:
+    """Add ``counts`` (kernel id -> launches) to the wrappers' counts."""
+    for rid, n in counts.items():
+        WRAPPERS[rid].launches += n
 
 
 def gauge_name(rid: str) -> str:

@@ -95,6 +95,14 @@ def weight_decay_mask(params: dict[str, torch.Tensor]) -> dict[str, bool]:
     return {name: p.ndim > 1 for name, p in params.items()}
 
 
+def _scaled(t: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
+    """``t`` times a float32 ``factor`` on the card, as the card multiplies
+    by a Python number: in float32, rounded once to t's dtype."""
+    if t.dtype == torch.float32:
+        return t * factor
+    return (t.float() * factor).to(t.dtype)
+
+
 def _squares(tensors) -> torch.Tensor:
     return sum(t.float().square().sum() for t in tensors)
 
@@ -160,19 +168,31 @@ class MaskedAdamW:
             return t
         return self.zero1.slice(t, self.cut[name])
 
-    @torch.no_grad()
-    def update(self, grads: dict[str, torch.Tensor],
-               norm: torch.Tensor | None = None) -> None:
-        """One update from ``grads`` (same keys as the parameters; clipped
-        here, in place). ``norm``: their global norm, when known."""
-        c = self.config
-        with span("step/clip"):
-            clip_by_global_norm(grads, c.max_grad_norm, norm)
-        lr = learning_rate(c, self.count)
+    def factors(self) -> tuple[float, float, float]:
+        """The next update's learning rate and its bias corrections
+        1 - b1**k and 1 - b2**k, k its count from 1."""
         count = self.count + 1
         # optax takes 1 - decay**count in float32
         bc1 = float(np.float32(1) - np.float32(B1) ** np.float32(count))
         bc2 = float(np.float32(1) - np.float32(B2) ** np.float32(count))
+        return learning_rate(self.config, self.count), bc1, bc2
+
+    @torch.no_grad()
+    def update(self, grads: dict[str, torch.Tensor],
+               norm: torch.Tensor | None = None,
+               factors: torch.Tensor | None = None) -> None:
+        """One update from ``grads`` (same keys as the parameters; clipped
+        here, in place). ``norm``: their global norm, when known.
+        ``factors``: for an update captured in a CUDA graph, three
+        float32 on the card that ``stage`` fills before each replay; the
+        kernels read the factors there, and this call leaves ``count``
+        alone."""
+        c = self.config
+        with span("step/clip"):
+            clip_by_global_norm(grads, c.max_grad_norm, norm)
+        lr, bc1, bc2 = self.factors()
+        if factors is not None:
+            neg_lr, inv1, inv2 = factors.unbind()
         with span("step/adamw"):
             for name, whole in self.params.items():
                 # with ZeRO-1, views of this rank's slices: the update
@@ -184,16 +204,35 @@ class MaskedAdamW:
                 # (1 - b) * g**k + b * moment, in optax's order
                 mu.mul_(B1).add_(g * (1 - B1))
                 nu.mul_(B2).add_(g.square() * (1 - B2))
-                u = (mu / bc1) / (torch.sqrt(nu / bc2) + EPS)
+                if factors is None:
+                    u = (mu / bc1) / (torch.sqrt(nu / bc2) + EPS)
+                else:
+                    u = _scaled(mu, inv1) / (torch.sqrt(_scaled(nu, inv2))
+                                             + EPS)
                 if self.decay[name]:
                     u = u + c.weight_decay * p
-                p.add_(-lr * u)
+                p.add_(-lr * u if factors is None else _scaled(u, neg_lr))
         if self.zero1 is not None:
             names = list(self.params)
             with span("step/zero1_gather"):
                 self.zero1.gather_([self.params[n] for n in names],
                                    [self.cut[n] for n in names])
-        self.count = count
+        if factors is None:
+            self.count += 1
+
+    def stage(self, factors: torch.Tensor) -> None:
+        """Fill ``factors`` for the next replay of an update captured with
+        them, and count that update: -lr, 1 / bc1 and 1 / bc2 in
+        float32, the numbers the card's kernels take from ``update``'s
+        Python ones (they multiply by a divisor's reciprocal). Three
+        fills, no copy from the host."""
+        lr, bc1, bc2 = self.factors()
+        one = np.float32(1)
+        values = (np.float32(-lr), one / np.float32(bc1),
+                  one / np.float32(bc2))
+        for slot, value in zip(factors.unbind(), values):
+            slot.fill_(float(value))
+        self.count += 1
 
     def state_dict(self) -> dict:
         """``count`` and the whole moments. With ZeRO-1 they are gathered

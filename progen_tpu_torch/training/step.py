@@ -42,7 +42,11 @@ Each call opens the span tree ``step/run`` > ``step/h2d`` (a wait),
 ``step/gate`` (the finite gate's read, a wait) and ``step/update``
 (when the gate passes; ``step/clip``, ``step/adamw`` and
 ``step/zero1_gather`` inside, from the optimizer). They add no launch
-or synchronise.
+or synchronise. A step replayed from its CUDA graphs (single card,
+``training/graphs.py``) opens ``step/h2d``, ``step/replay`` (the
+launches of graph A, once a micro-batch, and of graph N),
+``step/gate`` and ``step/update`` (graph B's launch) alone; the call
+that captures them opens the eager spans of what it records.
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ from progen_tpu_torch.parallel.groups import Grid, shard_batch
 from progen_tpu_torch.parallel.partition import Zero1
 from progen_tpu_torch.parallel.tensor import layout
 from progen_tpu_torch.telemetry.spans import span
+from progen_tpu_torch.training.graphs import Captured, key_of, replayable
 from progen_tpu_torch.training.loss import cross_entropy, shard_cross_entropy
 from progen_tpu_torch.training.optimizer import (
     MaskedAdamW,
@@ -116,54 +121,106 @@ def grid_norm(model, grads: dict, grid: Grid | None) -> torch.Tensor:
     return global_norm(rep, sharded, grid.model_group)
 
 
-def make_train_step(grid: Grid | None = None
-                    ) -> Callable[[TrainState, torch.Tensor],
-                                  tuple[TrainState, dict]]:
-    """Returns train_step(state, batch) -> (state, metrics), which updates
-    ``state`` in place. ``batch``: (grad_accum, micro_batch, seq_len + 1)
-    integer tokens, on any device; with a ``grid``, the global batch,
-    the same on every rank, which every rank steps together."""
+def micro_step(model: ProGen, micro: torch.Tensor, k: int = 0,
+               grid: Grid | None = None) -> torch.Tensor:
+    """Micro-batch ``k``'s forward and backward, its gradients summed
+    into the parameters' ``.grad``: its loss, detached."""
+    with span("step/forward", micro=k):
+        loss = batch_loss(model, micro, grid)
+    with span("step/backward", micro=k):
+        loss.backward()  # sums into .grad across micro-batches
+    return loss.detach()
 
-    def train_step(state: TrainState, batch: torch.Tensor):
+
+def average(model: ProGen, grads: dict, count: int,
+            grid: Grid | None = None) -> torch.Tensor:
+    """``grads`` divided in place by the accumulation count; returns
+    their global norm."""
+    for g in grads.values():
+        g.div_(count)
+    with span("step/grad_norm"):
+        return grid_norm(model, grads, grid)
+
+
+def accumulate(model: ProGen, params: dict, batch: torch.Tensor,
+               grid: Grid | None = None) -> tuple:
+    """Every micro-batch's forward and backward, summed into the
+    parameters' ``.grad``, reduced over a ``grid``, divided by the
+    accumulation count: (losses, grads, grad_norm), ``grads`` those
+    ``.grad`` keyed like ``params``."""
+    for p in params.values():
+        p.grad = None
+    losses = torch.stack([micro_step(model, micro, k, grid)
+                          for k, micro in enumerate(batch)])
+    if grid is not None:
+        # summed over seq, averaged over data
+        with span("step/grad_reduce"):
+            reduce_grads(model, {n: p.grad for n, p in params.items()},
+                         losses, grid)
+    grads = {name: p.grad for name, p in params.items()}
+    return losses, grads, average(model, grads, batch.shape[0], grid)
+
+
+class TrainStep:
+    """A train step function (``make_train_step``) and what it keeps
+    between calls: the captured graphs of one key, the key of its last
+    eager call, and its counts of captures and replayed steps. It holds
+    no reference to itself, so that dropping it frees its graphs at
+    once: a graph freed while another is being captured (by the
+    collector of reference cycles) would break that capture."""
+
+    def __init__(self, grid: Grid | None):
+        self.grid = grid
+        self.graphs: Captured | None = None
+        self.warm = None  # the key of the last eager call on the card
+        self.captures = self.replays = 0
+
+    def __call__(self, state: TrainState, batch: torch.Tensor):
         with span("step/run"):
-            return _train_step(state, batch)
+            return self._step(state, batch)
 
-    def _train_step(state: TrainState, batch: torch.Tensor):
-        model, opt = state.model, state.optimizer
-        with span("step/h2d", wait=True):
-            batch = torch.as_tensor(batch).to(model.device)
+    def _step(self, state: TrainState, batch: torch.Tensor):
+        model, opt, grid = state.model, state.optimizer, self.grid
+        batch = torch.as_tensor(batch)
         if batch.ndim != 3:
             raise ValueError("batch must be (grad_accum, micro_batch, "
                              f"seq_len + 1), got {tuple(batch.shape)}")
-        if grid is not None:
-            batch = shard_batch(batch, grid)
-        params = opt.params
-        for p in params.values():
-            p.grad = None
-        losses = []
-        for k, micro in enumerate(batch):
-            with span("step/forward", micro=k):
-                loss = batch_loss(model, micro, grid)
-            with span("step/backward", micro=k):
-                loss.backward()  # sums into .grad across micro-batches
-            losses.append(loss.detach())
-        losses = torch.stack(losses)
-        if grid is not None:
-            # summed over seq, averaged over data
-            with span("step/grad_reduce"):
-                reduce_grads(model, {n: p.grad for n, p in params.items()},
-                             losses, grid)
-        grads = {name: p.grad.div_(batch.shape[0])
-                 for name, p in params.items()}
-        with span("step/grad_norm"):
-            grad_norm = grid_norm(model, grads, grid)
+        key = key_of(state, batch) if replayable(model, grid) else None
+        if self.graphs is not None and self.graphs.key != key:
+            self.graphs = None
+        if self.graphs is None and key is not None and key == self.warm:
+            with span("step/h2d", wait=True):
+                static = batch.to(model.device, copy=True)
+            self.graphs = Captured(
+                key, state, static, lambda m: micro_step(model, m),
+                lambda g: average(model, g, len(static)))
+            self.captures += 1
+        elif self.graphs is not None:
+            with span("step/h2d", wait=True):
+                self.graphs.batch.copy_(batch)
+        graphs = self.graphs
+        if graphs is None:
+            self.warm = key
+            with span("step/h2d", wait=True):
+                batch = batch.to(model.device)
+            if grid is not None:
+                batch = shard_batch(batch, grid)
+            losses, grads, grad_norm = accumulate(model, opt.params, batch,
+                                                  grid)
+        else:
+            with span("step/replay"):
+                losses, grad_norm = graphs.accumulate()
+            self.replays += 1
         with span("step/gate", wait=True):
             ok = bool(torch.isfinite(losses).all()
                       & torch.isfinite(grad_norm))
         if ok:
             with span("step/update"):
-                opt.update(grads, grad_norm)
-        for p in params.values():
+                if graphs is None:
+                    opt.update(grads, grad_norm)
+                else:
+                    graphs.update()
+        for p in opt.params.values():
             p.grad = None
         state.step += 1
         metrics = {
@@ -174,7 +231,18 @@ def make_train_step(grid: Grid | None = None
         }
         return state, metrics
 
-    return train_step
+
+def make_train_step(grid: Grid | None = None) -> TrainStep:
+    """Returns train_step(state, batch) -> (state, metrics), which updates
+    ``state`` in place. ``batch``: (grad_accum, micro_batch, seq_len + 1)
+    integer tokens, on any device; with a ``grid``, the global batch,
+    the same on every rank, which every rank steps together.
+
+    Without a grid, on the card, the step replays itself from CUDA
+    graphs (``training/graphs.py``) from the second call on a batch
+    shape and state; ``train_step.captures`` and ``train_step.replays``
+    count its captures and its replayed steps."""
+    return TrainStep(grid)
 
 
 def make_eval_step(grid: Grid | None = None
