@@ -6,6 +6,10 @@ at the root of the checkout names them; the pieces are files of their
 own beside this one:
 
 * ``configs/<config>.json``: a model configuration, its sizes as run;
+* ``families/<family>.py``: what the yardstick knows of the
+  configuration's architecture (its ``family`` key, ``progen`` where it
+  has none): its sizes, seeded weights, kernels and their work, and its
+  plain reference (``families/__init__.py``);
 * ``mixes/<traffic>.toml``: a traffic mix, its ``kind`` and parameters;
 * ``traffic/<kind>.py``: the runner of a kind, ``run(ctx) -> Outcome``;
 * ``cells/<cell>.toml``: what belongs to one cell alone, the limits of
@@ -42,10 +46,13 @@ def loaded_forbidden(modules=None) -> list:
 
 
 def _load_module(path: Path, name: str):
+    """The module of the file ``path``, registered as ``name`` (a
+    dataclass's module has to be found by its name)."""
     spec = importlib.util.spec_from_file_location(name, path)
     if spec is None:
         raise FileNotFoundError(path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
     spec.loader.exec_module(mod)
     return mod
 
@@ -58,7 +65,8 @@ class Cell:
     traffic_name: str
     kind: str
     raw_config: dict
-    spec: specs.ModelSpec
+    family: object  # the configuration's ``families/<name>.py``
+    spec: object  # its ``family.Spec``
     params: dict  # the mix's parameters
     settings: dict  # the cell's own file
     end_to_end: list  # metric entries this cell reports
@@ -67,6 +75,13 @@ class Cell:
     @property
     def limits(self) -> dict:
         return self.settings["limits"]
+
+    def weights(self, seed: int, device) -> dict:
+        """The configuration's seeded weights (``weights.make``), drawn
+        anew."""
+        from portbench import weights
+
+        return weights.make(self.spec, seed, device, self.family.SCALES)
 
 
 class Bench:
@@ -90,8 +105,9 @@ class Bench:
 
     def cell(self, name: str) -> Cell:
         w = self.workload(name)
-        raw, spec = specs.load_config(self.root / "configs"
-                                      / f"{w['config']}.json")
+        raw = specs.load_config(self.root / "configs"
+                                / f"{w['config']}.json")
+        family = self.family(specs.family_name(raw))
         mix = tomllib.loads((self.root / "mixes"
                              / f"{w['traffic']}.toml").read_text())
         settings = tomllib.loads((self.root / "cells"
@@ -99,21 +115,28 @@ class Bench:
         return Cell(
             name=name, chips=int(w["chips"]), config_name=w["config"],
             traffic_name=w["traffic"], kind=mix["kind"], raw_config=raw,
-            spec=spec, params=mix.get("params", {}), settings=settings,
+            family=family, spec=family.Spec.from_dict(raw),
+            params=mix.get("params", {}), settings=settings,
             end_to_end=[m for m in self.data["end_to_end"]
                         if self._applies(m, name)],
             per_layer=[m for m in self.data["per_layer"]
                        if self._applies(m, name)])
 
+    def family(self, name: str):
+        return _load_module(self.root / "families" / f"{name}.py",
+                            _module_name("family", name))
+
     def runner(self, kind: str):
         return _load_module(self.root / "traffic" / f"{kind}.py",
-                            f"portbench_traffic_{kind}")
+                            _module_name("traffic", kind))
 
     def reader(self, metric: str):
-        mod = _load_module(self.root / "metrics" / f"{metric}.py",
-                           "portbench_metric_" + metric.replace(".", "_")
-                           .replace("-", "_"))
-        return mod.read
+        return _load_module(self.root / "metrics" / f"{metric}.py",
+                            _module_name("metric", metric)).read
+
+
+def _module_name(part: str, name: str) -> str:
+    return f"portbench_{part}_" + name.replace(".", "_").replace("-", "_")
 
 
 def process_start() -> float:
@@ -300,9 +323,7 @@ def kernel_shares(cell: Cell, readings: Readings) -> dict:
     passes = readings.values.get("traced_passes")
     if not passes:
         return {}
-    work = counts.work_ms(cell.spec, passes["rows"],
-                          forwards=passes["forwards"],
-                          backwards=passes["backwards"])
+    work = counts.traced_work(cell.family, cell.spec, passes)
     return {rid: 100.0 * work[rid] / 1e3 / s
             for rid, s in readings.trace.kernel_s.items()
             if rid in work and s > 0}

@@ -1,7 +1,7 @@
 """The optimizer's update of a training step, in ms: the program's
 ``step/update`` span (the clip and AdamW, issued with no synchronise),
-the median over the window's steps that updated (``program_spans.py``).
-The inside counterpart of ``optimizer_ms.train``."""
+the median over the window's steps that updated (``program_spans.py``);
+on a replayed step, ``stage``'s fills and graph B's launch."""
 
 from portbench import program_spans
 

@@ -1,0 +1,24 @@
+"""The plain references of the yardstick: float32 PyTorch from each
+architecture's equations, no kernels, caches or batching tricks, and
+nothing of the program."""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Float32 products in float32 inside the block: TF32 off for
+    matmuls and cuDNN, the settings restored after."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved

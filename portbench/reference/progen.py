@@ -3,7 +3,7 @@
 Written from the architecture's equations with plain PyTorch operations
 and no kernels, caches or batching tricks; it imports nothing of the
 program. Parameters are a dict keyed by the program's ``state_dict``
-names (``spec.ModelSpec.parameter_shapes``).
+names (``families/progen.py``'s ``Spec.parameter_shapes``).
 
 The model: token embedding; ``depth`` x (pre-norm windowed local
 attention + pre-norm feed-forward) with residual adds; a scale-only
@@ -26,25 +26,8 @@ lower-precision one in its place.
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 import torch.nn.functional as F
-
-
-@contextlib.contextmanager
-def no_tf32():
-    """Float32 products in float32 inside the block: TF32 off for
-    matmuls and cuDNN, the settings restored after."""
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
 
 
 def layer_norm(x, scale, eps):

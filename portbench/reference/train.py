@@ -15,8 +15,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from portbench.reference.progen import rows_nll
-
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
 
@@ -34,12 +32,13 @@ def leaf_norms(tensors: dict) -> dict:
 
 
 def train(params: dict, spec, batches: list, opt: Optimizer, *,
-          rows_per_block: int, linear=F.linear) -> dict:
+          rows_nll, rows_per_block: int, linear=F.linear) -> dict:
     """``len(batches)`` steps from ``params`` (name -> float32 tensor,
     left unchanged). Each batch: (grad_accum, micro_batch, n + 1)
-    tokens. Returns the loss of each step, the norm of each tensor's
-    first gradient as the optimizer takes it (clipped), and the norm of
-    each tensor's change over all the steps."""
+    tokens; ``rows_nll`` is the family's plain per-sequence loss
+    (``families/``). Returns the loss of each step, the norm of each
+    tensor's first gradient as the optimizer takes it (clipped), and the
+    norm of each tensor's change over all the steps."""
     p = {n: t.detach().clone().requires_grad_(True)
          for n, t in params.items()}
     mu = {n: torch.zeros_like(t) for n, t in p.items()}

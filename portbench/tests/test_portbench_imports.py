@@ -53,6 +53,7 @@ def test_a_run_loads_no_forbidden_module():
             "from portbench import harness, faults, calibrate\n"
             "import portbench.traffic.train_closed\n"
             "import portbench.traffic.score_library\n"
+            "import portbench.families.progen\n"
             "import progen_tpu_torch.training.step\n"
             "import progen_tpu_torch.workloads.scoring\n"
             "import progen_tpu_torch.ops.launches\n"

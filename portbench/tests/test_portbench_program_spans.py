@@ -1,4 +1,4 @@
-"""The readers of the program's spans (``program_spans.py`` and the six
+"""The readers of the program's spans (``program_spans.py`` and the
 metrics that read it): the window sliced from the ring, nothing where
 the ring lost part of it or the program keeps none, each reader's
 median, and the runners' traced runs on the CPU."""
@@ -164,8 +164,6 @@ def test_a_ring_too_small_for_the_run_gives_nothing(monkeypatch):
 
 @pytest.mark.parametrize("metric, want", [
     # medians over the window's 3 steps (the update over the 2 that ran)
-    ("forward_ms.train", 40.0),
-    ("backward_ms.train", 120.0),
     ("update_ms.train", 8.0),
     ("host_wait_ms.train", 7.0),
     # over the second call's 4 batches
@@ -181,8 +179,7 @@ def test_each_reader_reads_its_median(monkeypatch, metric, want):
 
 
 @pytest.mark.parametrize("kind, names", [
-    ("train_closed", {"forward_ms.train", "backward_ms.train",
-                      "update_ms.train", "host_wait_ms.train"}),
+    ("train_closed", {"update_ms.train", "host_wait_ms.train"}),
     ("score_library", {"forward_ms.score", "fetch_wait_ms.score"}),
 ])
 def test_a_traced_run_reads_the_programs_spans(monkeypatch, kind, names):
@@ -195,8 +192,3 @@ def test_a_traced_run_reads_the_programs_spans(monkeypatch, kind, names):
     assert set(got) >= names
     assert all(got[n]["value"] > 0 and got[n]["unit"] == "ms"
                for n in names)
-    if kind == "train_closed":
-        # the update timed from inside is the harness's wrapped update
-        # less the wrapper
-        assert got["update_ms.train"]["value"] <= 1.5 * got[
-            "optimizer_ms.train"]["value"]

@@ -131,6 +131,7 @@ def test_a_session_that_lost_its_span_is_stood_in_for(lost):
     other's reading stands."""
     import torch
 
+    from portbench.families import progen
     from portbench.trace import UNLABELLED, Sessions
 
     device, host = _traced(0, 400), _traced(5000, 400)
@@ -138,7 +139,7 @@ def test_a_session_that_lost_its_span_is_stood_in_for(lost):
         device = device[:1] + device[2:]
     if lost in ("host", "both"):
         host = host[:1] + host[2:]
-    sessions = Sessions(torch.device("cpu"), 1)
+    sessions = Sessions(torch.device("cpu"), 1, progen.KERNEL_NAMES)
     sessions.profs = [_Session(device, False), _Session(host, True)]
     s = sessions.summary()
     if lost == "both":

@@ -37,20 +37,26 @@ def test_a_planted_fault_is_not_correct(kind, fault):
     assert not ok, rows
 
 
-@pytest.mark.parametrize("kind", KINDS)
-def test_a_traced_run_reads_its_host_metrics(kind):
-    """On the CPU the profiler sees no device, so the trace's metrics
-    are left out; the host's are read."""
+@pytest.mark.parametrize("kind, want", [
+    ("train_closed", {"step_max_ms.train", "host_wait_ms.train",
+                      "update_ms.train"}),
+    ("score_library", {"scorer_host_ms.score", "forward_ms.score",
+                       "fetch_wait_ms.score"})])
+def test_a_traced_run_reads_its_host_metrics(monkeypatch, kind, want):
+    """On the CPU the profiler sees no device and no rate has a peak, so
+    the trace's metrics and the shares of the peak are left out, and no
+    step replays; the host's metrics and the program's spans are read,
+    in a process whose ring of spans holds this run alone (as
+    ``run.py``'s does)."""
     from portbench import harness
+    from progen_tpu_torch.telemetry import spans
 
+    monkeypatch.setattr(spans, "_GLOBAL", spans.Telemetry())
     ctx, outcome, rows, ok = tiny.execute(kind, tiny.SEEDS[1], trace=True)
     line = harness.result(ctx.cell, ctx, outcome, tiny.bench(),
                           harness.device_info(tiny.CPU), ok, rows)
     assert line["correct"]
-    names = set(line["metrics"])
-    want = ({"step_max_ms.train", "optimizer_ms.train"}
-            if kind == "train_closed" else {"scorer_host_ms.score"})
-    assert names == want
+    assert set(line["metrics"]) == want
     assert list(line)[-1] == "checks"
 
 

@@ -8,7 +8,8 @@ from pathlib import Path
 
 import torch
 
-from portbench import harness, spec as specs
+from portbench import harness
+from portbench.families import progen
 
 CHECKOUT = Path(__file__).resolve().parents[2]
 TINY = dict(num_tokens=256, dim=64, depth=2, heads=2, dim_head=16,
@@ -53,7 +54,7 @@ def cell(kind: str) -> harness.Cell:
     return harness.Cell(
         name=f"tiny-{kind}", chips=1, config_name="tiny",
         traffic_name="tiny", kind=kind, raw_config=dict(TINY),
-        spec=specs.ModelSpec.from_dict(TINY), params=params,
+        family=progen, spec=progen.Spec.from_dict(TINY), params=params,
         settings=settings, end_to_end=real.end_to_end,
         per_layer=real.per_layer)
 

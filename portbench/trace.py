@@ -14,8 +14,10 @@ device operation of the steps inside falls inside it. Busy time is the
 union of the device's kernels, copies and fills within the span; an
 idle gap is a stretch of it with none, labelled by what the host was
 doing at its middle: the harness's outermost span and the innermost
-operation. Where one session's trace lost its span, the other's stands
-in.
+operation. A kernel's time is charged to its hand-written kernel's id
+by the running cell's family's table (``KERNEL_NAMES``; ProGen's where
+none is given). Where one session's trace lost its span, the other's
+stands in.
 """
 
 from __future__ import annotations
@@ -125,9 +127,17 @@ def short_name(name: str, limit: int = 96) -> str:
     return name if len(name) <= limit else name[:limit - 3] + "..."
 
 
-def reduce(events: list) -> Summary | None:
+def reduce(events: list, kernel_names: dict | None = None
+           ) -> Summary | None:
     """The traced span's summary, or None when the trace holds no span
-    between two markers or no device operation inside it."""
+    between two markers or no device operation inside it. Kernel ids
+    are ``kernel_names``'s (a family's ``KERNEL_NAMES``), ProGen's where
+    it is None."""
+    if kernel_names is None:
+        from portbench.families import progen
+
+        kernel_names = progen.KERNEL_NAMES
+    kernel_id = counts.kernel_matcher(kernel_names)
     marks = sorted((e for e in events if e.kind == "kernel"
                     and MARK in e.name), key=lambda e: e.start_ns)
     if len(marks) < 2:
@@ -145,7 +155,7 @@ def reduce(events: list) -> Summary | None:
         d = min(e.end_ns, w1) - max(e.start_ns, w0)
         key = short_name(e.name)
         by_name[key] = by_name.get(key, 0) + d
-        rid = counts.kernel_id(e.name) if e.kind == "kernel" else None
+        rid = kernel_id(e.name) if e.kind == "kernel" else None
         if rid is not None:
             kernel_ns[rid] = kernel_ns.get(rid, 0) + d
     host = _HostTree([e for e in events if e.kind in HOST_KINDS])
@@ -219,10 +229,12 @@ class Sessions:
     """The traced steps after the window: a session of the device's
     operations, then one with the host's, each one step ahead of
     ``steps`` traced steps. Call ``before(i)`` before the i-th of
-    ``total`` steps and once more, with ``i == total``, after the last."""
+    ``total`` steps and once more, with ``i == total``, after the last.
+    Kernel ids are ``kernel_names``'s (``reduce``)."""
 
-    def __init__(self, device, steps: int):
+    def __init__(self, device, steps: int, kernel_names: dict):
         self.device, self.steps = device, int(steps)
+        self.kernel_names = kernel_names
         self.total = 2 * (self.steps + 1)
         self.profs = []
 
@@ -247,7 +259,7 @@ class Sessions:
         found = []
         for p in self.profs:
             events = p.events()
-            found.append(reduce(events))
+            found.append(reduce(events, self.kernel_names))
             if self.device.type == "cuda":
                 kinds = {}
                 for e in events:
@@ -268,12 +280,14 @@ class Sessions:
         return device
 
 
-def traced(device, steps: int, drive) -> Summary | None:
+def traced(device, steps: int, drive, kernel_names: dict
+           ) -> Summary | None:
     """The traced steps' summary: ``drive(sessions)`` runs
     ``sessions.total`` steps, calling ``sessions.before`` as it says. A
-    trace that holds no span on the card is taken once more."""
+    trace that holds no span on the card is taken once more. Kernel ids
+    are ``kernel_names``'s (``reduce``)."""
     for _ in range(ATTEMPTS):
-        sessions = Sessions(device, steps)
+        sessions = Sessions(device, steps, kernel_names)
         drive(sessions)
         summary = sessions.summary()
         if summary is not None or device.type != "cuda":

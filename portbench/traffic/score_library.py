@@ -1,5 +1,7 @@
 """Library scoring: the program's ``run_batch_score`` ranking a stream of
-candidate proteins by perplexity, as ``cli.batch_score`` runs it.
+candidate proteins by perplexity, as ``cli.batch_score`` runs it. The
+model is the program's ``ProGen``; its sizes, seeded weights, kernels'
+work and reference are the configuration's family's (``families/``).
 
 Set-up loads the benchmark's seeded weights into the program's model
 and scores ``warmup_batches`` batches of the cell's own shape into a
@@ -31,10 +33,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from portbench import compare, proteins, spec as specs, weights
+from portbench import compare, proteins, spec as specs
 from portbench.harness import Outcome, Readings, release
-from portbench.reference import fp8
-from portbench.reference import progen as plain
+from portbench.reference import fp8, no_tf32
 from portbench.trace import traced
 
 WARMUP_PREFIX = "W"
@@ -80,17 +81,18 @@ def sample_ids(ctx, records: dict, ids) -> list:
 
 def reference_scores(ctx, records: dict, ids: list, linear=None) -> dict:
     """id -> the plain float32 reference's per-sequence loss."""
-    spec = ctx.cell.spec
-    rows = int(ctx.cell.settings["reference_rows"])
-    params = weights.make(spec, ctx.seed, ctx.device)
+    cell = ctx.cell
+    spec = cell.spec
+    rows = int(cell.settings["reference_rows"])
+    params = cell.weights(ctx.seed, ctx.device)
     out = {}
-    with torch.no_grad(), plain.no_tf32():
+    with torch.no_grad(), no_tf32():
         for i in range(0, len(ids), rows):
             block = ids[i:i + rows]
             tokens = torch.from_numpy(proteins.encode_rows(
                 [records[r] for r in block], spec.seq_len + 1)).to(ctx.device)
-            nll = plain.rows_nll(params, spec, tokens,
-                                 **({"linear": linear} if linear else {}))
+            nll = cell.family.rows_nll(
+                params, spec, tokens, **({"linear": linear} if linear else {}))
             out.update(zip(block, nll.double().tolist()))
     return out
 
@@ -102,7 +104,7 @@ def _model(ctx):
     config = ProGenConfig.from_dict(specs.program_dict(ctx.cell.raw_config))
     with torch.device(ctx.device):
         model = ProGen(config, device=ctx.device, seed=None)
-    model.load_state_dict(weights.make(ctx.cell.spec, ctx.seed, ctx.device))
+    model.load_state_dict(ctx.cell.weights(ctx.seed, ctx.device))
     ctx.mark("weights")
     return model
 
@@ -185,7 +187,8 @@ def run(ctx) -> Outcome:
                 _score(model, traced_feed(), work / "traced", p)
                 sessions.before(sessions.total)
 
-            trace_summary = traced(ctx.device, span, drive)
+            trace_summary = traced(ctx.device, span, drive,
+                                   ctx.cell.family.KERNEL_NAMES)
         trace_s = time.perf_counter() - t
         peak = (torch.cuda.max_memory_allocated(ctx.device)
                 if ctx.device.type == "cuda" else 0)

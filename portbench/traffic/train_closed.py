@@ -1,23 +1,26 @@
 """Closed-loop training: the program's ``make_train_step`` called back to
 back on fresh batches of synthetic proteins, one step after another.
 
-Set-up builds one training state (``init_train_state(config,
-seed=None)``, filled with the benchmark's seeded weights), drives it
-through its first steps with the window's own call and feed, and hands
-that same state to the window. The reference follows those first steps
-from the same weights on the same batches once the window has closed
-and the program's state is freed; the numbers compared are each step's
-loss, the first gradient as the optimizer took it (its first moment
-over 1 - b1) and the change of every tensor over the first steps.
+Set-up builds one training state (the configuration's family's
+``program_train_state``, filled with the benchmark's seeded weights),
+drives it through its first steps with the window's own call and feed,
+and hands that same state to the window. The reference follows those
+first steps from the same weights on the same batches once the window
+has closed and the program's state is freed; the numbers compared are
+each step's loss, the first gradient as the optimizer took it (its
+first moment over 1 - b1) and the change of every tensor over the first
+steps.
 
 The window runs whole optimizer steps until ``--seconds`` have passed;
 its rate is the tokens of every row of every step (each protein with
 its BOS and EOS, pad left out) over the time from the window's start to
 the end of its last step, synchronised. With ``--trace 1`` each step's
-span ends with its loss read and the optimizer's update has a span of
-its own; after the window, the profiler's two sessions (``trace.py``)
-each trace ``profile_steps`` steps (the cell's file), which fall
-outside the window and its rate.
+span ends with its loss read; after the window, the profiler's two
+sessions (``trace.py``) each trace ``profile_steps`` steps (the cell's
+file), which fall outside the window and its rate.
+
+The model, its seeded weights, its kernels' work and its reference are
+the configuration's family's (``families/``).
 """
 
 from __future__ import annotations
@@ -26,13 +29,11 @@ import math
 import statistics
 import time
 
-import numpy as np
 import torch
 
-from portbench import compare, counts, proteins, spec as specs, weights
+from portbench import compare, proteins
 from portbench.harness import Outcome, Readings, release
-from portbench.reference import fp8
-from portbench.reference import progen as plain
+from portbench.reference import fp8, no_tf32
 from portbench.reference import train as plain_train
 from portbench.trace import traced
 
@@ -73,23 +74,15 @@ def _norms(tensors: dict, scale: float = 1.0) -> dict:
 def _program(ctx, first: list):
     """The program's state and step, driven through the first batches.
     Returns (state, step, readings of those steps)."""
-    from progen_tpu_torch.config import ProGenConfig
     from progen_tpu_torch.training.optimizer import OptimizerConfig
-    from progen_tpu_torch.training.step import (
-        init_train_state,
-        make_train_step,
-    )
+    from progen_tpu_torch.training.step import make_train_step
 
     cell = ctx.cell
-    config = ProGenConfig.from_dict(specs.program_dict(cell.raw_config))
     opt = _optimizer(cell.params)
-    with torch.device(ctx.device):
-        state = init_train_state(
-            config, OptimizerConfig(opt.learning_rate, opt.weight_decay,
-                                    opt.max_grad_norm),
-            seed=None, device=ctx.device)
-    state.model.load_state_dict(weights.make(cell.spec, ctx.seed,
-                                             ctx.device))
+    state = cell.family.program_train_state(
+        cell.raw_config, OptimizerConfig(opt.learning_rate, opt.weight_decay,
+                                         opt.max_grad_norm), ctx.device)
+    state.model.load_state_dict(cell.weights(ctx.seed, ctx.device))
     ctx.mark("weights")
     step = make_train_step()
     got = {"losses": []}
@@ -98,7 +91,7 @@ def _program(ctx, first: list):
         got["losses"].append(float(metrics["loss"]))
         if k == 0:  # the first moment holds (1 - b1) x the clipped grad
             got["grad_norms"] = _norms(state.optimizer.mu, 1 / (1 - B1))
-    start = weights.make(cell.spec, ctx.seed, ctx.device)
+    start = cell.weights(ctx.seed, ctx.device)
     with torch.no_grad():
         got["change_norms"] = {
             n: float(torch.linalg.vector_norm((p - start[n]).double()))
@@ -111,7 +104,7 @@ def _program(ctx, first: list):
 def _window(ctx, state, step, next_batch) -> dict:
     """The measured window, and with ``--trace 1`` the profiled steps
     after it; returns the window's counts and times, and the trace."""
-    opt_spans, step_spans = [], []
+    step_spans = []
 
     def traced_step(state, spans=True):
         with torch.autograd.profiler.record_function("portbench.data"):
@@ -126,17 +119,6 @@ def _window(ctx, state, step, next_batch) -> dict:
             step_spans.append(time.perf_counter() - ts)
         return state, metrics, n
 
-    if ctx.trace:
-        update = state.optimizer.update
-
-        def timed_update(*args, **kwargs):
-            t = time.perf_counter()
-            with torch.autograd.profiler.record_function(
-                    "portbench.optimizer"):
-                update(*args, **kwargs)
-            opt_spans.append(time.perf_counter() - t)
-
-        state.optimizer.update = timed_update
     from progen_tpu_torch.ops import launches
 
     launches.reset_counts()
@@ -161,8 +143,6 @@ def _window(ctx, state, step, next_batch) -> dict:
     counted = launches.launch_counts()
     summary = trace_s = None
     if ctx.trace:
-        window_opt = len(opt_spans)
-
         def drive(sessions):
             nonlocal state
             for i in range(sessions.total):
@@ -172,12 +152,10 @@ def _window(ctx, state, step, next_batch) -> dict:
 
         t = time.perf_counter()
         summary = traced(ctx.device, ctx.cell.settings["profile_steps"],
-                         drive)
+                         drive, ctx.cell.family.KERNEL_NAMES)
         trace_s = time.perf_counter() - t
-        del opt_spans[window_opt:]
-        del state.optimizer.update
     return dict(steps=steps, skipped=skipped, tokens=tokens,
-                elapsed=elapsed, step_spans=step_spans, opt_spans=opt_spans,
+                elapsed=elapsed, step_spans=step_spans,
                 launches=counted, summary=summary, trace_s=trace_s,
                 returns_ms=[round(1e3 * (b - a), 1)
                             for a, b in zip(marks, marks[1:])])
@@ -185,6 +163,7 @@ def _window(ctx, state, step, next_batch) -> dict:
 
 def run(ctx) -> Outcome:
     cell, spec, p = ctx.cell, ctx.cell.spec, ctx.cell.params
+    family = cell.family
     next_batch = batches(ctx)
     first = [next_batch()[0] for _ in range(int(p["first_steps"]))]
     rows = int(cell.settings["reference_rows"])
@@ -193,10 +172,11 @@ def run(ctx) -> Outcome:
         torch.cuda.reset_peak_memory_stats(ctx.device)
     info, rates, readings = {}, {}, None
     if ctx.variant == "control":
-        with plain.no_tf32():
-            got = plain_train.train(weights.make(spec, ctx.seed, ctx.device),
-                                    spec, first, opt, rows_per_block=rows,
-                                    linear=fp8.linear)
+        with no_tf32():
+            got = plain_train.train(cell.weights(ctx.seed, ctx.device),
+                                    spec, first, opt,
+                                    rows_nll=family.rows_nll,
+                                    rows_per_block=rows, linear=fp8.linear)
         attempted = failed = 0
         peak = 0
     else:
@@ -214,15 +194,14 @@ def run(ctx) -> Outcome:
         traced = int(cell.settings["profile_steps"]) if ctx.trace else 0
         readings = Readings(
             cell=cell,
-            spans={"train_step": w["step_spans"],
-                   "optimizer.update": w["opt_spans"]},
+            spans={"train_step": w["step_spans"]},
             values={"tokens_per_s": rates["train_tokens_per_s"],
                     "traced_steps_window_s": traced * w["elapsed"]
                     / w["steps"],
                     "traced_passes": dict(
                         rows=p["micro_batch"],
                         **{k: traced * n for k, n in
-                           counts.train_step_passes(
+                           family.train_step_passes(
                                spec, p["grad_accum"]).items()}),
                     "device_name": _device_name(ctx.device)},
             trace=summary)
@@ -232,9 +211,10 @@ def run(ctx) -> Outcome:
                     launches=w["launches"], returns_ms=w["returns_ms"])
         if w["step_spans"]:
             info["step_ms_median"] = 1e3 * statistics.median(w["step_spans"])
-    with plain.no_tf32():
-        want = plain_train.train(weights.make(spec, ctx.seed, ctx.device),
-                                 spec, first, opt, rows_per_block=rows)
+    with no_tf32():
+        want = plain_train.train(cell.weights(ctx.seed, ctx.device),
+                                 spec, first, opt, rows_nll=family.rows_nll,
+                                 rows_per_block=rows)
     numbers = compare.train_numbers(got, want)
     info["worst_tensor"] = numbers.pop("_worst")
     info["quiet_tensors"] = sorted(set(want["grad_norms"])
